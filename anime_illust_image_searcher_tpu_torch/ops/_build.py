@@ -3,14 +3,16 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). The library lands in ``_build/`` beside this
-package, under a name that carries a hash of its source, so an edited source is
-never served by a stale library. Building happens at first use, never at
-import; a failed build raises.
+package, under a name that carries a hash of its source, of every
+``csrc/*.cuh`` header and of ``NVCC_FLAGS``, so an edited source or header, or
+a changed flag, is never served by a stale library. Building happens at first
+use, never at import; a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -41,10 +43,14 @@ def _nvcc() -> str:
 
 
 def _paths(name: str):
+    """The source of ``name`` and its library, named by a hash of what builds it:
+    the flags, the source and every header beside it."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(b"\0" + os.path.basename(path).encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str]) -> None:

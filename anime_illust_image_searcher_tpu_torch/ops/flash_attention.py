@@ -1,9 +1,11 @@
 """Multi-head attention for the ViT encoder: a hand-written CUDA kernel for Hopper.
 
 Port of the JAX package's ops/flash_attention.py (the Pallas TPU kernel
-``mha_attention``). The kernel is ``csrc/flash_attention.cu``: FlashAttention-2
-style online softmax over 64-key K/V tiles with ``mma.sync`` bf16 tensor-core
-products and f32 softmax/accumulation (the source notes its design and bound).
+``mha_attention``). The kernel is ``csrc/flash_attention.cu``: an online softmax
+over 64-key K/V tiles, 128 query rows per block (two warpgroups), both products
+on Hopper's ``wgmma`` from 128-byte-swizzled shared-memory tiles that
+``cp.async`` fills, f32 softmax and accumulation (the source notes its design
+and bound).
 
 ``mha_attention`` launches the kernel for CUDA tensors and raises if it cannot;
 it takes the plain version ``attention_reference`` only for tensors on the CPU.

@@ -7,9 +7,10 @@ of JAX or of the JAX package. Every phase is fatal on failure:
   1. build   — print the card's name and power limit, build every CUDA kernel
                from the sources in this checkout (nvcc, sm_90a);
   2. kernels — hold each kernel against its plain PyTorch version on the card at
-               the shapes the main path gives it plus ragged ones, and time the
-               kernel, the plain version and the library call that computes the
-               same function (``library_ms``) at the main path's B=32 shape;
+               the shapes the main path gives it, the edges of its tiling and
+               the head-split views the model hands it, and time the kernel,
+               the plain version and the library call that computes the same
+               function (``library_ms``) at the main path's B=32 shape;
   3. parity  — a full-width, depth-2 EVA02 with one set of seeded weights: the
                card (bf16, kernel) against the CPU (f32, plain), probabilities
                within 2e-2;
@@ -80,45 +81,63 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def check_attention(torch, fa, q, k, v, label: str) -> float:
+    """The kernel against its plain bf16 version and an f32 reference."""
+    got = fa.mha_attention(q, k, v).float()
+    torch.cuda.synchronize()
+    plain = fa.attention_reference(q, k, v).float()
+    exact = fa.attention_reference(q.float(), k.float(), v.float())
+    err = (got - plain).abs().max().item()
+    kern_err = (got - exact).abs().max().item()
+    plain_err = (plain - exact).abs().max().item()
+    print(f"kernel flash_attention {label}: |kernel-plain|={err:.3e} "
+          f"|kernel-f32|={kern_err:.3e} |plain-f32|={plain_err:.3e}", flush=True)
+    check(torch.isfinite(got).all().item(), f"non-finite kernel output at {label}")
+    check(err <= KERNEL_TOL, f"kernel vs plain {err} > {KERNEL_TOL} at {label}")
+    check(kern_err <= 2 * plain_err + 1e-3,
+          f"kernel error vs f32 {kern_err} > 2*{plain_err}+1e-3 at {label}")
+    return err
+
+
 def phase_kernels(torch, fa, gen) -> dict:
-    """Kernel vs plain at the EVA02 shape and two ragged ones, then timings."""
+    """Kernel vs plain at the EVA02 shape, the tiling's edges (64-key tiles,
+    128 query rows a block) and head-split views, then timings at B=32."""
     max_err = 0.0
-    for b, h, s, dh in ((4, 16, 1025, 64), (2, 16, 100, 64), (2, 16, 257, 64)):
+    shapes = [(4, 16, 1025, 64), (2, 16, 100, 64), (2, 16, 257, 64)]
+    shapes += [(2, 16, s, 64) for s in (1, 64, 65, 127, 128, 129)]
+    for b, h, s, dh in shapes:
         q, k, v = (torch.randn(b, h, s, dh, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
-        got = fa.mha_attention(q, k, v).float()
-        torch.cuda.synchronize()
-        plain = fa.attention_reference(q, k, v).float()
-        exact = fa.attention_reference(q.float(), k.float(), v.float())
-        err = (got - plain).abs().max().item()
-        kern_err = (got - exact).abs().max().item()
-        plain_err = (plain - exact).abs().max().item()
-        print(f"kernel flash_attention B={b} H={h} S={s} Dh={dh}: |kernel-plain|={err:.3e} "
-              f"|kernel-f32|={kern_err:.3e} |plain-f32|={plain_err:.3e}", flush=True)
-        check(torch.isfinite(got).all().item(), f"non-finite kernel output at S={s}")
-        check(err <= KERNEL_TOL, f"kernel vs plain {err} > {KERNEL_TOL} at S={s}")
-        check(kern_err <= 2 * plain_err + 1e-3,
-              f"kernel error vs f32 {kern_err} > 2*{plain_err}+1e-3 at S={s}")
-        max_err = max(max_err, err)
+        max_err = max(max_err, check_attention(torch, fa, q, k, v, f"B={b} H={h} S={s} Dh={dh}"))
+    b, s = 2, 1025          # the model's layout: heads split off a (B, S, 1024) projection
+    q, k, v = (torch.randn(b, s, 16 * 64, generator=gen, device="cuda").to(torch.bfloat16)
+               .view(b, s, 16, 64).transpose(1, 2) for _ in range(3))
+    max_err = max(max_err, check_attention(torch, fa, q, k, v, f"head-split views B={b} S={s}"))
 
     b, h, s, dh = 32, 16, 1025, 64          # one EVA02-L layer at B=32
     q, k, v = (torch.randn(b, h, s, dh, generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
-    ms = cuda_ms(lambda: fa.mha_attention(q, k, v), iters=20)
-    plain_ms = cuda_ms(lambda: fa.attention_reference(q, k, v), iters=5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q, k, v), iters=20)
+    # in turns (kernel, sdpa, sdpa, kernel), each the mean of 20 launches
+    kernel_runs, sdpa_runs = [cuda_ms(lambda: fa.mha_attention(q, k, v), iters=20)], []
+    sdpa_runs += [cuda_ms(lambda: sdpa(q, k, v), iters=20) for _ in range(2)]
+    kernel_runs.append(cuda_ms(lambda: fa.mha_attention(q, k, v), iters=20))
+    ms, library_ms = sum(kernel_runs) / 2, sum(sdpa_runs) / 2
+    plain_ms = cuda_ms(lambda: fa.attention_reference(q, k, v), iters=5)
     flops = 4 * b * h * s * s * dh
     nbytes = 4 * b * h * s * dh * q.element_size()
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    print(f"kernel flash_attention B={b} H={h} S={s} Dh={dh}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-          f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    bound_ms = max(t_ops, t_bytes)
+    print(f"kernel flash_attention B={b} H={h} S={s} Dh={dh}: kernel {ms:.4f} ms "
+          f"(runs {kernel_runs[0]:.4f}, {kernel_runs[1]:.4f}), {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * bound_ms / ms:.1f}% of the bound; sdpa {library_ms:.4f} ms (runs "
+          f"{sdpa_runs[0]:.4f}, {sdpa_runs[1]:.4f}), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
     return dict(name="flash_attention", route="cuda",
                 source="anime_illust_image_searcher_tpu_torch/csrc/flash_attention.cu",
                 replaces="anime_illust_image_searcher_tpu/ops/flash_attention.py:109",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_ops, t_bytes),
+                bound_ms=bound_ms,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=library_ms)
 

@@ -21,7 +21,12 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,s", [(4, 16, 1025), (1, 16, 100), (2, 16, 257)])
+@pytest.mark.parametrize("b,h,s", [
+    (4, 16, 1025), (1, 16, 100), (2, 16, 257),
+    # the tiling's edges: 64-key tiles, 128 query rows a block (64 a warpgroup)
+    (2, 16, 1), (2, 16, 64), (2, 16, 65), (2, 16, 127), (2, 16, 128), (2, 16, 129),
+    (8, 16, 1025),   # 1152 blocks of 256 threads: more than one wave on 132 SMs
+])
 def test_kernel_matches_plain_on_card(cuda, b, h, s):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(b, h, s, 64, generator=g, device=cuda).to(torch.bfloat16)
@@ -46,6 +51,8 @@ def test_kernel_takes_head_split_views(cuda):
     q, k, v = (t.view(3, 1025, 16, 64).transpose(1, 2) for t in x)
     got = tfa.mha_attention(q, k, v)
     torch.cuda.synchronize()
+    assert got.shape == (3, 16, 1025, 64)
+    assert got.transpose(1, 2).is_contiguous()   # a (B, S, H, Dh) buffer
     plain = tfa.attention_reference(q, k, v).float()
     assert (got.float() - plain).abs().max().item() <= 2e-2
 
