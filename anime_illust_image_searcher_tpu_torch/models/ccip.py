@@ -7,10 +7,11 @@ mirrors the reference's ``Predictor`` surface (gen_cfeatures.py:68-335):
 plus the reranker's device stages (live, row-gather, capped candidates).
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; without a card it raises.
-On the card the encoder runs in bf16 (the attention kernel takes bf16); an f32
-model config there raises. Seeded weights come from a ``torch.Generator`` and
-so differ from the JAX package's seeded weights: runs that compare the two
-packages share a ``params.npz`` model dir (models/ccip_weights.py).
+The encoder runs in its config's compute dtype: bf16 by default, f32 when
+``model_cfg`` says so (on the card each dtype has its attention kernel).
+Seeded weights come from a ``torch.Generator`` and so differ from the JAX
+package's seeded weights: runs that compare the two packages share a
+``params.npz`` model dir (models/ccip_weights.py).
 
 The metric is the JAX package's choice, made the same way: a model dir that
 ships ``model_metrics.onnx`` (cli/convert_ccip.py copies it there when the
@@ -163,10 +164,6 @@ class CCIPPredictor:
                 "--model-dir); using seeded RANDOM weights. Feature format is "
                 "real, character semantics are not."
             )
-        if self.device.type == "cuda" and self.model_cfg.dtype != torch.bfloat16:
-            raise ValueError(
-                f"CCIP on the card runs in bfloat16 (the attention kernel takes "
-                f"bf16); the model config asks for {self.model_cfg.dtype}")
         model = CAFormer(self.model_cfg, device=self.device)
         if state is None:
             init_params(model, seed=self.seed)

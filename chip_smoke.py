@@ -11,9 +11,20 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                the head-split views the model hands it, and time the kernel,
                the plain version and the library call that computes the same
                function (``library_ms``) at the main path's B=32 shape;
+ 2c. f32     — the f32 attention kernel (csrc/flash_attention_f32.cu) against
+               its plain f32 version (within 1e-5) and f64 (its error at most
+               twice the plain version's plus 1e-6) at Dh=64, S = 1, 63, 64,
+               65, 127, 128, 129, 257, 1025 and on head-split views, and at
+               Dh=32 on qkv views with garbage past S (S = 1, 63, 64, 65, 129,
+               144, 576, and B=64 at S=144); then held and timed in turns with
+               SDPA f32 (its error against plain printed beside its time), the
+               plain version and the FFMA bound at the EVA02-L layer (B=32) and
+               the CAFormer-24 stage 3 and 4 layers (B=64);
   3. parity  — a full-width, depth-2 EVA02 with one set of seeded weights: the
                card (bf16, kernel) against the CPU (f32, plain), probabilities
                within 2e-2;
+ 3b. parity f32 — the same model in f32 on both sides, the card through the
+               f32 kernel: logits within 5e-5 x max(1, |logit|);
   4. main    — TaggerPredictor on the card at full width (WD-EVA02-Large: 448²,
                24 blocks, 1024-d, 16 heads, 10861 classes), seeded weights,
                synthetic labels, B=256: a warm-up, 3 timed batches through the
@@ -21,6 +32,9 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                img/s and MFU;
   5. cli     — cli.tagging.Predictor.process_directory on 7 images at B=4 (the
                tail batch is padded): 7 tag lines.
+ 4b. f32 tagging — phases 4 and 5 again with TaggerConfig(compute_dtype=
+               "float32") at B=64: img/s, the f32 kernel's launches (24 a
+               forward) and none of the bf16 kernel's.
   6. profile — one B=256 predict under torch.profiler: device time by kernel.
  16. tagging end to end (runs after 6) — the port's decode library: g++ and
                its headers probed, runtime/ingest.cpp built (fatal if the
@@ -78,6 +92,11 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                heads 10/16) and depth (1, 1, 2, 1), one set of seeded weights:
                the card (bf16, kernel) against the CPU (f32, plain), unit
                features within 5e-3 and each cosine at least 0.9995;
+ 10b. ccip f32 — the same CPU features against the card's f32 model through
+               the f32 kernel, unit features within 5e-5; then CAFormer-24 in
+               f32 (an explicit f32 model config) at B=64 through
+               CCIPPredictor.ccip_extract_device: a warm-up, 3 batches, the
+               forward on CUDA events, 18 f32 launches a forward;
  11. ccip main — CAFormer-24 at full width, B=64, seeded weights, through
                CCIPPredictor.ccip_extract_device: a warm-up, 3 batches through
                gen_cfeatures' depth-1 pipeline (img/s end to end), the
@@ -135,9 +154,12 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                (`reinfer {json}`).
 
 The kernel launch counts are set to 0 just before the path that runs them and
-read just after it: the attention kernel at Dh=64 around phases 4-5 and
-around phase 16's end-to-end runs (24 launches per forward), at Dh=32 around phases 11-13 (18 launches per CAFormer
-forward) and around phase 15, the query-scores kernel around phases 8-9's
+read just after it: the bf16 attention kernel at Dh=64 around phases 4-5 and
+around phase 16's end-to-end runs (24 launches per forward), at Dh=32 around
+phases 11-13 (18 launches per CAFormer forward) and around phase 15; the f32
+attention kernel (its own counts) at Dh=64 around phase 4b and at Dh=32
+around phase 10b's CAFormer-24 run, each window also checking that the other
+dtype's kernel did not launch; the query-scores kernel around phases 8-9's
 served traffic (2 launches per dispatch of the fused program, counted in each
 phase), around phase 13 (2 per character pass of 1 to 8 queries, 1 more per
 second dispatch) and around phase 15.
@@ -206,15 +228,17 @@ def max_sm_ghz() -> float:
 def attention_bound(b, h, s, dh, elt, sm_ghz):
     """(bound ms, bound_by, detail) of one attention launch: q, k, v read and o
     written once at the memory rate; against the operations' peaks, the
-    products on the tensor cores (4*B*H*S^2*Dh bf16 FLOPs) and the softmax's
-    one exp2 a score on the MUFU (B*H*S^2 at 16 a clock on each SM)."""
+    products (4*B*H*S^2*Dh FLOPs: on the tensor cores in bf16, elt 2, on the
+    FMA pipes in f32, elt 4, as TF32 stays off) and the softmax's one exp2 a
+    score on the MUFU (B*H*S^2 at 16 a clock on each SM)."""
     flops, exps, nbytes = 4 * b * h * s * s * dh, b * h * s * s, 4 * b * h * s * dh * elt
-    t_tc = flops / PEAK_BF16_FLOPS * 1e3
+    t_products = flops / (PEAK_F32_FLOPS if elt == 4 else PEAK_BF16_FLOPS) * 1e3
     t_mufu = exps / (N_SMS * EXP2_PER_CLK_SM * sm_ghz * 1e9) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    bound = max(t_tc, t_mufu, t_bytes)
-    return bound, ("bytes" if t_bytes >= max(t_tc, t_mufu) else "operations"), dict(
-        gflop=flops / 1e9, mega_exp2=exps / 1e6, mb=nbytes / 1e6, tensor_core_ms=t_tc,
+    bound = max(t_products, t_mufu, t_bytes)
+    return bound, ("bytes" if t_bytes >= max(t_products, t_mufu) else "operations"), dict(
+        gflop=flops / 1e9, mega_exp2=exps / 1e6, mb=nbytes / 1e6,
+        products_ms=t_products, products_on="FFMA f32" if elt == 4 else "tensor cores bf16",
         mufu_ms=t_mufu, bytes_ms=t_bytes)
 
 
@@ -290,11 +314,12 @@ def phase_kernels(torch, fa, gen, sm_ghz) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def qkv_views(torch, gen, b, h, s, pad=0):
-    """The CAFormer mixer's q, k, v: head-split views of a (B, S, 3C) bf16
-    projection (C = 32 H), with ``pad`` rows of garbage past S."""
+def qkv_views(torch, gen, b, h, s, pad=0, dtype=None):
+    """The CAFormer mixer's q, k, v: head-split views of a (B, S, 3C) bf16 (or
+    ``dtype``) projection (C = 32 H), with ``pad`` rows of garbage past S."""
     c = 32 * h
-    buf = torch.randn(b, s + pad, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
+    buf = torch.randn(b, s + pad, 3 * c, generator=gen, device="cuda").to(
+        dtype or torch.bfloat16)
     return buf[:, :s].view(b, s, 3, h, 32).permute(2, 0, 3, 1, 4).unbind(0)
 
 
@@ -335,6 +360,101 @@ def phase_kernels_dh32(torch, fa, gen, sm_ghz) -> dict:
                 bound_ms=s3["bound_ms"], bound_by=s3["bound_by"], library_ms=s3["sdpa_ms"])
 
 
+F32_KERNEL_TOL = 1e-5     # max |f32 kernel - plain f32| on N(0,1) inputs
+
+
+def f64_attention(torch, q, k, v):
+    """Attention in f64: the yardstick of the f32 kernel and its plain version."""
+    q, k, v = q.double(), k.double(), v.double()
+    s = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    return torch.matmul(torch.softmax(s, dim=-1), v)
+
+
+def check_attention_f32(torch, fa, q, k, v, label: str) -> float:
+    """The f32 kernel against its plain f32 version (within 1e-5) and f64 (its
+    error at most twice the plain version's plus 1e-6)."""
+    got = fa.mha_attention(q, k, v)
+    torch.cuda.synchronize()
+    plain = fa.attention_reference(q, k, v)
+    exact = f64_attention(torch, q, k, v)
+    err = (got - plain).abs().max().item()
+    kern_err = (got.double() - exact).abs().max().item()
+    plain_err = (plain.double() - exact).abs().max().item()
+    print(f"kernel flash_attention_f32 {label}: |kernel-plain|={err:.3e} "
+          f"|kernel-f64|={kern_err:.3e} |plain-f64|={plain_err:.3e}", flush=True)
+    check(got.dtype == torch.float32 and torch.isfinite(got).all().item(),
+          f"f32 kernel output not finite f32 at {label}")
+    check(err <= F32_KERNEL_TOL, f"f32 kernel vs plain {err} > {F32_KERNEL_TOL} at {label}")
+    check(kern_err <= 2 * plain_err + 1e-6,
+          f"f32 kernel error vs f64 {kern_err} > 2*{plain_err}+1e-6 at {label}")
+    return err
+
+
+def phase_kernels_f32(torch, fa, gen, sm_ghz) -> list:
+    """Phase 2c: the f32 kernel against its plain f32 version and f64 at the
+    card tests' shapes (Dh=64 at the tiling's edges and on head-split views,
+    Dh=32 on qkv views with garbage past S), then held and timed at the three
+    main-path shapes in turns with SDPA f32 (whose error against the plain
+    version is printed beside its time), the plain version and the bound.
+    Returns the ``kernels`` entries: Dh=64 (EVA02) and Dh=32 (stage 3)."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for f32 matmuls")
+    max_err = {64: 0.0, 32: 0.0}
+    for s in (1, 63, 64, 65, 127, 128, 129, 257, 1025):
+        q, k, v = (torch.randn(2, 16, s, 64, generator=gen, device="cuda") for _ in range(3))
+        max_err[64] = max(max_err[64], check_attention_f32(torch, fa, q, k, v,
+                                                           f"B=2 H=16 S={s} Dh=64"))
+    x = torch.randn(3, 2, 1025, 16 * 64, generator=gen, device="cuda")
+    q, k, v = (t.view(2, 1025, 16, 64).transpose(1, 2) for t in x)
+    max_err[64] = max(max_err[64], check_attention_f32(torch, fa, q, k, v,
+                                                       "head-split views B=2 S=1025"))
+    for b, h, s in ([(2, 2, s) for s in (1, 63, 64, 65, 129)]
+                    + [(2, 16, 144), (2, 10, 576), (64, 16, 144)]):
+        q, k, v = qkv_views(torch, gen, b, h, s, pad=7, dtype=torch.float32)
+        max_err[32] = max(max_err[32], check_attention_f32(
+            torch, fa, q, k, v, f"qkv views B={b} H={h} S={s} Dh=32"))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = {}
+    for label, (b, h, s, dh) in (("eva02", (32, 16, 1025, 64)), ("stage3", (64, 10, 576, 32)),
+                                 ("stage4", (64, 16, 144, 32))):
+        if dh == 64:
+            q, k, v = (torch.randn(b, h, s, dh, generator=gen, device="cuda") for _ in range(3))
+        else:
+            q, k, v = qkv_views(torch, gen, b, h, s, pad=7, dtype=torch.float32)
+        max_err[dh] = max(max_err[dh], check_attention_f32(
+            torch, fa, q, k, v, f"B={b} H={h} S={s} Dh={dh}"))
+        plain = fa.attention_reference(q, k, v)
+        sdpa_err = (sdpa(q, k, v) - plain).abs().max().item()
+        del plain
+        iters = 10 if dh == 64 else 30
+        runs = [cuda_ms(lambda: fa.mha_attention(q, k, v), iters=iters)]
+        lib_runs = [cuda_ms(lambda: sdpa(q, k, v), iters=iters) for _ in range(2)]
+        runs.append(cuda_ms(lambda: fa.mha_attention(q, k, v), iters=iters))
+        plain_ms = cuda_ms(lambda: fa.attention_reference(q, k, v), iters=3)
+        bound_ms, bound_by, detail = attention_bound(b, h, s, dh, 4, sm_ghz)
+        ms = sum(runs) / 2
+        shapes[label] = dict(B=b, H=h, S=s, Dh=dh, ms=ms, runs=runs,
+                             sdpa_ms=sum(lib_runs) / 2, sdpa_runs=lib_runs,
+                             sdpa_max_abs_err_vs_plain=sdpa_err, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             share_of_bound=bound_ms / ms, tflops=detail["gflop"] / ms,
+                             **detail)
+        del q, k, v
+    torch.cuda.empty_cache()
+    print("kernel flash_attention_f32 " + json.dumps(dict(
+        max_abs_err=max_err, sm_ghz=sm_ghz, tf32=False, **shapes)), flush=True)
+    entries = []
+    for name, label, dh in (("flash_attention_f32", "eva02", 64),
+                            ("flash_attention_f32_dh32", "stage3", 32)):
+        r = shapes[label]
+        entries.append(dict(name=name, route="cuda",
+                            source="anime_illust_image_searcher_tpu_torch/csrc/flash_attention_f32.cu",
+                            replaces="anime_illust_image_searcher_tpu/ops/flash_attention.py:109",
+                            max_abs_err=max_err[dh], ms=r["ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["sdpa_ms"]))
+    return entries
+
+
 def phase_parity(torch, eva02, tagger) -> None:
     """Full width, depth 2: card (bf16, kernel) vs CPU (f32, plain)."""
     cfg = eva02.Eva02Config(depth=2)
@@ -356,22 +476,58 @@ def phase_parity(torch, eva02, tagger) -> None:
     check(err <= PARITY_TOL, f"card vs cpu probs differ by {err} > {PARITY_TOL}")
 
 
-def phase_main(torch, tagger_mod, config_mod, eva02, fa) -> dict:
-    """Full-width tagging at B=256: a warm-up, 3 batches through the depth-1
-    pipeline of cli.tagging (queue batch N, then assemble batch N-1's lines),
-    and 2 forwards timed on the card alone. 6 forwards in all."""
-    cfg = config_mod.TaggerConfig()
+F32_LOGIT_TOL = 5e-5      # |logit card f32 - CPU f32| <= tol * max(1, |logit|): the off-CPU
+                          # f32 bound of tests/test_eva02_oracle.py
+
+
+def phase_parity_f32(torch, eva02) -> None:
+    """Phase 3b: full width, depth 2, f32 on both sides: the card (f32
+    kernel) against the CPU (plain), logits within 5e-5 x max(1, |logit|)."""
+    cfg = eva02.Eva02Config(depth=2, dtype=torch.float32)
+    cpu_model = eva02.Eva02(cfg, device="cpu")
+    eva02.init_params(cpu_model, seed=0)
+    gpu_model = eva02.Eva02(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    x = torch.from_numpy((np.random.RandomState(1).rand(2, 448, 448, 3) * 2 - 1).astype(np.float32))
+    logits = [eva02.forward_logits(m.eval(), x.to(dev)).cpu()
+              for m, dev in ((gpu_model, "cuda"), (cpu_model, "cpu"))]
+    rel = ((logits[0] - logits[1]).abs() / logits[1].abs().clamp_min(1)).max().item()
+    print(f"parity f32 depth-2 full width, card f32 kernel vs cpu f32: max|dlogit|/max(1,|logit|)="
+          f"{rel:.3e} (tol {F32_LOGIT_TOL}), max|dlogit|="
+          f"{(logits[0] - logits[1]).abs().max().item():.3e}, logit spread "
+          f"{logits[1].std().item():.3f}", flush=True)
+    check(logits[0].dtype == torch.float32 and torch.isfinite(logits[0]).all().item(),
+          "non-finite f32 logits on the card")
+    check(rel <= F32_LOGIT_TOL, f"card vs cpu f32 logits differ by {rel} > {F32_LOGIT_TOL}")
+    del gpu_model
+    torch.cuda.empty_cache()
+
+
+def phase_main(torch, tagger_mod, config_mod, eva02, fa, compute_dtype="bfloat16",
+               batch_size=None) -> dict:
+    """Full-width tagging (B=256 by default): a warm-up, 3 batches through the
+    depth-1 pipeline of cli.tagging (queue batch N, then assemble batch N-1's
+    lines), and 2 forwards timed on the card alone. 6 forwards in all. With
+    ``compute_dtype="float32"`` (phase 4b) the f32 model runs, through the
+    f32 attention kernel."""
+    f32 = compute_dtype == "float32"
+    cfg = config_mod.TaggerConfig(compute_dtype=compute_dtype)
+    if batch_size:
+        cfg = dataclasses.replace(cfg, batch_size=batch_size)
     pred = tagger_mod.TaggerPredictor(cfg, device="cuda")
     pred.load_model()
-    check(pred.model_cfg == eva02.Eva02Config(), f"not the full config: {pred.model_cfg}")
+    want_cfg = eva02.Eva02Config(dtype=torch.float32 if f32 else torch.bfloat16)
+    check(pred.model_cfg == want_cfg, f"not the full config: {pred.model_cfg}")
+    counts = fa.mha_attention.launches_f32 if f32 else fa.mha_attention.launches
+    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
     b = cfg.batch_size
     rng = np.random.RandomState(2)
     batches = [rng.randint(0, 256, (b, 448, 448, 3), dtype=np.uint8) for _ in range(3)]
     args = (cfg.general_thresh, cfg.general_mcut_enabled,
             cfg.character_thresh, cfg.character_mcut_enabled)
-    before = fa.mha_attention.launches[64]
+    before = counts[64]
     warm = pred.predict(batches[0], *args)
-    check(fa.mha_attention.launches[64] - before == pred.model_cfg.depth,
+    check(counts[64] - before == pred.model_cfg.depth,
           "attention did not launch once per block in one forward")
 
     torch.cuda.synchronize()
@@ -384,7 +540,8 @@ def phase_main(torch, tagger_mod, config_mod, eva02, fa) -> dict:
             outs.append(pred.finalize(pending, *args))
             host_s += time.perf_counter() - h0
         pending = devs
-    check(torch.isfinite(pending[0]).all().item(), "non-finite probabilities")
+    check(torch.isfinite(pending[0]).all().item() and pending[0].dtype == torch.float32,
+          "non-finite or non-f32 probabilities")
     h0 = time.perf_counter()
     outs.append(pred.finalize(pending, *args))
     host_s += time.perf_counter() - h0
@@ -400,21 +557,22 @@ def phase_main(torch, tagger_mod, config_mod, eva02, fa) -> dict:
 
     fwd_ms = cuda_ms(forward, iters=2, warmup=0)
     img_s = 3 * b / wall
-    res = dict(batch=b, batches_timed=3, seconds=wall, img_s=img_s,
-               mfu=img_s * GFLOP_PER_IMAGE * 1e9 / PEAK_BF16_FLOPS,
+    res = dict(compute_dtype=compute_dtype, batch=b, batches_timed=3, seconds=wall,
+               img_s=img_s, mfu=img_s * GFLOP_PER_IMAGE * 1e9 / peak,
+               mfu_of=f"{peak / 1e12:.0f} TFLOP/s {'f32' if f32 else 'bf16'}",
                finalize_s_per_batch=host_s / 3,
                tags_per_line=float(np.mean([len(l.split(",")) for o in outs for l in o])),
                forward_ms=fwd_ms,
                forward_img_s=b / fwd_ms * 1e3,
-               forward_mfu=b / fwd_ms * 1e3 * GFLOP_PER_IMAGE * 1e9 / PEAK_BF16_FLOPS,
+               forward_mfu=b / fwd_ms * 1e3 * GFLOP_PER_IMAGE * 1e9 / peak,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print("tagging " + json.dumps(res), flush=True)
+    print(("tagging f32 " if f32 else "tagging ") + json.dumps(res), flush=True)
     del pred, x
     torch.cuda.empty_cache()
     return res
 
 
-def phase_cli(torch, tagging, config_mod) -> int:
+def phase_cli(torch, tagging, config_mod, compute_dtype="bfloat16") -> int:
     rng = np.random.RandomState(3)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -431,12 +589,14 @@ def phase_cli(torch, tagging, config_mod) -> int:
                     shape = (300 + 20 * i, 200 + 30 * i, 3)      # padded to square, resized
                     Image.fromarray(rng.randint(0, 256, shape, dtype=np.uint8)).save(
                         f"imgs/img_{i}.png")
-                cfg, decode_fn = config_mod.TaggerConfig(batch_size=4), None
+                cfg = config_mod.TaggerConfig(batch_size=4, compute_dtype=compute_dtype)
+                decode_fn = None
             else:
                 print("cli: no Pillow; .npy arrays through PrefetchLoader's decode_fn", flush=True)
                 for i in range(7):
                     np.save(f"imgs/img_{i}.npy", rng.randint(0, 256, (448, 448, 3), dtype=np.uint8))
-                cfg = config_mod.TaggerConfig(batch_size=4, extensions=(".npy",))
+                cfg = config_mod.TaggerConfig(batch_size=4, extensions=(".npy",),
+                                              compute_dtype=compute_dtype)
                 decode_fn = np.load
             pred = tagging.Predictor(config=cfg, device="cuda")
             pred.process_directory("imgs", decode_fn=decode_fn)
@@ -444,7 +604,7 @@ def phase_cli(torch, tagging, config_mod) -> int:
                 lines = [line for line in f.read().splitlines() if line]
             check(len(lines) == 7, f"cli wrote {len(lines)} lines, expected 7")
             check(all(line.startswith("imgs/img_") for line in lines), "cli line paths")
-            print(f"cli: 7 lines, first: {lines[0][:120]}", flush=True)
+            print(f"cli ({compute_dtype}): 7 lines, first: {lines[0][:120]}", flush=True)
             del pred
         finally:
             os.chdir(cwd)
@@ -978,7 +1138,8 @@ def phase_tagging(torch, tagging, tagger_mod, config_mod, eva02, quant, ingest, 
             torch, tagging, tagger_mod, config_mod, eva02, quant, ingest, native, corpus, rows)
         res["attention_launches"] = dict(fa.mha_attention.launches)
         depth = res["depth"]
-        check(fa.mha_attention.launches == {64: depth * forwards, 32: 0},
+        check(fa.mha_attention.launches == {64: depth * forwards, 32: 0}
+              and fa.mha_attention.launches_f32 == {64: 0, 32: 0},
               f"flash_attention launched {fa.mha_attention.launches} times in phase 16, "
               f"expected {depth} x {forwards} forwards at Dh=64")
     res.update(probe=probe, corpus=info, decode=rates, native_library=native.available(),
@@ -1017,26 +1178,45 @@ def unit_rows(x):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
+CCIP_F32_TOL = 5e-5       # max |unit feature card f32 - CPU f32|
+
+
 def phase_ccip_parity(torch, caformer, config_mod) -> None:
-    """Full width, depth (1, 1, 2, 1) at 384²: card (bf16, kernel) vs CPU (f32, plain)."""
+    """Full width, depth (1, 1, 2, 1) at 384², one CPU forward (f32, plain)
+    against two on the card: bf16 through the bf16 kernel (phase 10) and f32
+    through the f32 kernel (phase 10b, unit features within 5e-5)."""
     cfg = caformer.CAFormerConfig(depths=(1, 1, 2, 1))
     cpu_model = caformer.CAFormer(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
     caformer.init_params(cpu_model, seed=0)
-    gpu_model = caformer.CAFormer(cfg, device="cuda")
-    gpu_model.load_state_dict(cpu_model.state_dict())
     ccfg = config_mod.CCIPConfig()
     imgs = np.random.RandomState(5).randint(0, 256, (2, 384, 384, 3), dtype=np.uint8)
-    feats = [caformer.extract_features(m.eval(), torch.from_numpy(imgs).to(dev), ccfg.mean,
-                                       ccfg.std).float().cpu().numpy()
-             for m, dev in ((gpu_model, "cuda"), (cpu_model, "cpu"))]
-    err = float(np.abs(unit_rows(feats[0]) - unit_rows(feats[1])).max())
-    cos = (unit_rows(feats[0]) * unit_rows(feats[1])).sum(-1)
-    print(f"ccip parity depth (1, 1, 2, 1) full width, card bf16 vs cpu f32: max|dunit|="
-          f"{err:.3e} (tol {CCIP_TOL}), cos {cos.min():.6f} (min {CCIP_MIN_COS})", flush=True)
-    check(np.isfinite(feats[0]).all(), "non-finite CCIP features on the card")
-    check(err <= CCIP_TOL, f"card vs cpu CCIP features differ by {err} > {CCIP_TOL}")
-    check(cos.min() >= CCIP_MIN_COS, f"card vs cpu CCIP cosine {cos.min()} < {CCIP_MIN_COS}")
-    del gpu_model
+
+    def features(model, dev):
+        return caformer.extract_features(model.eval(), torch.from_numpy(imgs).to(dev),
+                                         ccfg.mean, ccfg.std).float().cpu().numpy()
+
+    want = unit_rows(features(cpu_model, "cpu"))
+    for dtype in (torch.bfloat16, torch.float32):
+        gpu_model = caformer.CAFormer(dataclasses.replace(cfg, dtype=dtype), device="cuda")
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        got = features(gpu_model, "cuda")
+        del gpu_model
+        check(np.isfinite(got).all(), f"non-finite CCIP features on the card ({dtype})")
+        err = float(np.abs(unit_rows(got) - want).max())
+        cos = (unit_rows(got) * want).sum(-1)
+        if dtype == torch.bfloat16:
+            print(f"ccip parity depth (1, 1, 2, 1) full width, card bf16 vs cpu f32: "
+                  f"max|dunit|={err:.3e} (tol {CCIP_TOL}), cos {cos.min():.6f} (min "
+                  f"{CCIP_MIN_COS})", flush=True)
+            check(err <= CCIP_TOL, f"card vs cpu CCIP features differ by {err} > {CCIP_TOL}")
+            check(cos.min() >= CCIP_MIN_COS,
+                  f"card vs cpu CCIP cosine {cos.min()} < {CCIP_MIN_COS}")
+        else:
+            print(f"ccip parity f32 depth (1, 1, 2, 1) full width, card f32 kernel vs cpu "
+                  f"f32: max|dunit|={err:.3e} (tol {CCIP_F32_TOL}), cos {cos.min():.9f}",
+                  flush=True)
+            check(err <= CCIP_F32_TOL,
+                  f"card vs cpu f32 CCIP features differ by {err} > {CCIP_F32_TOL}")
     torch.cuda.empty_cache()
 
 
@@ -1181,6 +1361,54 @@ def phase_ccip_main(torch, ccip_mod, config_mod, caformer, fa) -> tuple:
     del pred, x
     torch.cuda.empty_cache()
     return res, 1 + 3 + 4 + 1
+
+
+def phase_ccip_f32(torch, ccip_mod, config_mod, caformer, fa) -> tuple:
+    """Phase 10b's main path: CAFormer-24 at full width in f32 (an explicit
+    f32 model config), B=64, seeded weights, through
+    CCIPPredictor.ccip_extract_device: a warm-up (18 f32 launches), 3 batches
+    through gen_cfeatures' depth-1 pipeline, the forward alone on CUDA events.
+    Returns (results, forwards run)."""
+    cfg = config_mod.CCIPConfig()
+    pred = ccip_mod.CCIPPredictor(
+        cfg, model_cfg=caformer.CAFormerConfig(dtype=torch.float32), device="cuda")
+    pred.load_model()
+    check(pred.model_cfg == caformer.CAFormerConfig(dtype=torch.float32),
+          f"not the full f32 config: {pred.model_cfg}")
+    b = cfg.batch_size
+    rng = np.random.RandomState(6)
+    batches = [rng.randint(0, 256, (b, 384, 384, 3), dtype=np.uint8) for _ in range(3)]
+    before = dict(fa.mha_attention.launches_f32)
+    warm = pred.ccip_extract_device(batches[0]).cpu().numpy()
+    check(fa.mha_attention.launches_f32 == {64: before[64], 32: before[32] + 18},
+          "the f32 kernel did not launch at Dh=32 once per attention block in one forward")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, pending = [], None
+    for imgs in batches:
+        dev = pred.ccip_extract_device(imgs)
+        if pending is not None:
+            outs.append(pending.cpu().numpy())
+        pending = dev
+    outs.append(pending.cpu().numpy())
+    wall = time.perf_counter() - t0
+    check(all(o.shape == (b, cfg.feature_dim) and o.dtype == np.float32 and np.isfinite(o).all()
+              for o in outs), "f32 CCIP features: wrong shape or dtype, or non-finite")
+    rerun = float(np.abs(outs[0] - warm).max())
+    check(rerun <= 1e-6, f"the same batch gave f32 features {rerun} apart")
+    x = torch.from_numpy(batches[1]).to("cuda")
+    fwd_ms = cuda_ms(lambda: caformer.extract_features(pred.model, x, pred._mean, pred._std),
+                     iters=3, warmup=1)
+    gflop = caformer_gflop(pred.model_cfg)
+    img_s = 3 * b / wall
+    res = dict(compute_dtype="float32", batch=b, batches_timed=3, seconds=wall, img_s=img_s,
+               gflop_per_image=gflop, forward_ms=fwd_ms, forward_img_s=b / fwd_ms * 1e3,
+               forward_share_of_f32_peak=b / fwd_ms * 1e3 * gflop * 1e9 / PEAK_F32_FLOPS,
+               same_batch_max_diff=rerun)
+    print("ccip f32 " + json.dumps(res), flush=True)
+    del pred, x
+    torch.cuda.empty_cache()
+    return res, 1 + 3 + 4
 
 
 def phase_gen_cfeatures(torch, gen_cfeatures, config_mod, artifacts, similarity,
@@ -3097,7 +3325,7 @@ def main() -> None:
 
     # 1. build every kernel of the path (one nvcc per source, started together)
     t0 = time.perf_counter()
-    _build.build([fa.KERNEL, qs.KERNEL])
+    _build.build([fa.KERNEL, fa.KERNEL_F32, qs.KERNEL])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
@@ -3107,9 +3335,13 @@ def main() -> None:
     sm_ghz = max_sm_ghz()
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [phase_kernels(torch, fa, gen, sm_ghz), phase_kernels_dh32(torch, fa, gen, sm_ghz)]
+    # 2c. the f32 attention kernel at head dims 64 and 32 (its entries join
+    # the kernels line last)
+    f32_kernels = phase_kernels_f32(torch, fa, gen, sm_ghz)
 
-    # 3. the model on the card against the model on the CPU
+    # 3 + 3b. the model on the card against the model on the CPU, bf16 and f32
     phase_parity(torch, eva02, tagger_mod)
+    phase_parity_f32(torch, eva02)
 
     # 4 + 5. the main path, with the launch counts read around it
     fa.reset_launches()
@@ -3117,10 +3349,24 @@ def main() -> None:
     cli_forwards = phase_cli(torch, tagging, config_mod)
     launches = fa.mha_attention.launches[64]
     forwards = 6 + cli_forwards
-    check(fa.mha_attention.launches == {64: 24 * forwards, 32: 0},
-          f"flash_attention launched {fa.mha_attention.launches} times, "
-          f"expected 24 x {forwards} forwards at Dh=64")
+    check(fa.mha_attention.launches == {64: 24 * forwards, 32: 0}
+          and fa.mha_attention.launches_f32 == {64: 0, 32: 0},
+          f"flash_attention launched {fa.mha_attention.launches} times (f32: "
+          f"{fa.mha_attention.launches_f32}), expected 24 x {forwards} forwards at Dh=64")
     kernels[0]["launches"] = launches
+
+    # 4b. the f32 tagger (compute_dtype="float32") at full width, B=64, then
+    # the CLI in f32, with both counts set to 0 just before
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    f32_res = phase_main(torch, tagger_mod, config_mod, eva02, fa, compute_dtype="float32",
+                         batch_size=64)
+    forwards = 6 + phase_cli(torch, tagging, config_mod, compute_dtype="float32")
+    check(fa.mha_attention.launches_f32 == {64: 24 * forwards, 32: 0}
+          and fa.mha_attention.launches == {64: 0, 32: 0},
+          f"phase 4b: the f32 kernel launched {fa.mha_attention.launches_f32} times, the "
+          f"bf16 kernel {fa.mha_attention.launches}, expected 24 x {forwards} f32 forwards")
+    f32_kernels[0]["launches"] = fa.mha_attention.launches_f32[64]
 
     # 6. where the time of one forward goes
     phase_profile(torch, tagger_mod, config_mod)
@@ -3148,6 +3394,15 @@ def main() -> None:
         # 10-12. the CCIP encoder: card against CPU, then its main path (the
         # predictor, the CLI) with the Dh=32 count set to 0 just before it
         phase_ccip_parity(torch, caformer, config_mod)
+        # 10b. CAFormer-24 in f32 through the f32 kernel, counts set to 0 before it
+        fa.reset_launches()
+        ccip_f32_res, forwards = phase_ccip_f32(torch, ccip_mod, config_mod, caformer, fa)
+        check(fa.mha_attention.launches_f32 == {64: 0, 32: 18 * forwards}
+              and fa.mha_attention.launches == {64: 0, 32: 0},
+              f"phase 10b: the f32 kernel launched {fa.mha_attention.launches_f32} times, "
+              f"the bf16 kernel {fa.mha_attention.launches}, expected 18 x {forwards} "
+              "f32 CAFormer forwards")
+        f32_kernels[1]["launches"] = fa.mha_attention.launches_f32[32]
         fa.reset_launches()
         ccip_res, ccip_forwards = phase_ccip_main(torch, ccip_mod, config_mod, caformer, fa)
         gen_res, gen_forwards, gen_ctx = phase_gen_cfeatures(
@@ -3158,7 +3413,8 @@ def main() -> None:
                                              artifacts, webui, ui, tokens, rng, tmp)
         dh32 = fa.mha_attention.launches[32]
         forwards32 = ccip_forwards + gen_forwards + char_res["live_forwards"]
-        check(fa.mha_attention.launches == {64: 0, 32: 18 * forwards32},
+        check(fa.mha_attention.launches == {64: 0, 32: 18 * forwards32}
+              and fa.mha_attention.launches_f32 == {64: 0, 32: 0},
               f"flash_attention launched {fa.mha_attention.launches} times in "
               f"phases 11-13, expected 18 x {forwards32} CAFormer forwards at Dh=32")
         kernels[1]["launches"] = dh32
@@ -3173,7 +3429,8 @@ def main() -> None:
         convert_res, metric_res, batch_res, forwards15 = phase_ccip_onnx(
             torch, fa, qs, caformer, config_mod, rerank_ccip, webui, ui, char_ctx, gen_ctx, tmp)
         by_form = dict(qs.query_scores.launches_by_form)
-        check(fa.mha_attention.launches == {64: 0, 32: 18 * forwards15},
+        check(fa.mha_attention.launches == {64: 0, 32: 18 * forwards15}
+              and fa.mha_attention.launches_f32 == {64: 0, 32: 0},
               f"flash_attention launched {fa.mha_attention.launches} times in phase 15, "
               f"expected 18 x {forwards15} CAFormer forwards at Dh=32")
         for form in ("scores", "matvecs"):
@@ -3226,8 +3483,14 @@ def main() -> None:
           + f"; decode alone {e2e_res['decode']['pillow_threads']['img_s']:.1f} img/s (Pillow), "
           f"{e2e_res['decode']['native'].get('img_s', 'no library')} (native); int8 forward "
           f"{int8_res['forward_ms']:.1f} ms against bf16 {int8_res['bf16_forward_ms']:.1f} at "
-          f"B={int8_res['batch']}; on {smi}",
+          f"B={int8_res['batch']}; f32 tagging {f32_res['img_s']:.2f} img/s end to end at "
+          f"B={f32_res['batch']}, forward alone {f32_res['forward_img_s']:.2f} img/s; f32 CCIP "
+          f"forward alone {ccip_f32_res['forward_img_s']:.1f} img/s at B={ccip_f32_res['batch']}; "
+          f"f32 attention {f32_kernels[0]['ms']:.4f} ms (SDPA f32 "
+          f"{f32_kernels[0]['library_ms']:.4f}, bound {f32_kernels[0]['bound_ms']:.4f}) at "
+          f"B=32 Dh=64; on {smi}",
           flush=True)
+    kernels += f32_kernels
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -66,25 +66,46 @@ def test_library_path_follows_the_flags(tree, monkeypatch, flags):
     assert lib_path() == before
 
 
-def test_every_kernel_source_is_hashed_on_its_own(tmp_path, monkeypatch):
-    """Both kernels of the port build from csrc/; editing query_scores.cu
-    renames its library and leaves flash_attention's as it is."""
-    import shutil
-
+def kernel_names():
     from anime_illust_image_searcher_tpu_torch.ops import flash_attention, query_scores
 
-    names = (flash_attention.KERNEL, query_scores.KERNEL)
+    return (flash_attention.KERNEL, flash_attention.KERNEL_F32, query_scores.KERNEL)
+
+
+@pytest.mark.parametrize("edited", ["query_scores", "flash_attention_f32", "flash_attention"])
+def test_every_kernel_source_is_hashed_on_its_own(tmp_path, monkeypatch, edited):
+    """The kernels of the port build from csrc/ (attention in bf16 and in f32,
+    the query scores); editing one source renames its library and leaves the
+    others' as they are, so the f32 attention source never rebuilds the bf16
+    kernel."""
+    import shutil
+
+    names = kernel_names()
+    assert edited in names
     for name in names:
         assert os.path.isfile(os.path.join(_build.CSRC_DIR, name + ".cu")), name
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
     before = {n: lib_path(n) for n in names}
-    assert len(set(before.values())) == 2
-    with open(csrc / "query_scores.cu", "a") as f:
+    assert len(set(before.values())) == len(names)
+    with open(csrc / f"{edited}.cu", "a") as f:
         f.write("// edited\n")
-    assert lib_path("query_scores") != before["query_scores"]
-    assert lib_path("flash_attention") == before["flash_attention"]
+    for name in names:
+        assert (lib_path(name) != before[name]) == (name == edited), name
+
+
+def test_f32_attention_library_name():
+    """The f32 attention kernel is a library of its own, named by its source's
+    hash like the others."""
+    from anime_illust_image_searcher_tpu_torch.ops import flash_attention
+
+    f32, bf16 = lib_path(flash_attention.KERNEL_F32), lib_path(flash_attention.KERNEL)
+    assert os.path.dirname(f32) == _build.BUILD_DIR
+    assert os.path.basename(f32).startswith("libflash_attention_f32-") and f32.endswith(".so")
+    assert os.path.basename(bf16).startswith("libflash_attention-")
+    digest = os.path.basename(f32)[len("libflash_attention_f32-"):-len(".so")]
+    assert len(digest) == 16 and int(digest, 16) >= 0
 
 
 def test_build_serves_an_up_to_date_library_without_nvcc(tree, monkeypatch):

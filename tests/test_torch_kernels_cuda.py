@@ -17,7 +17,36 @@ from anime_illust_image_searcher_tpu_torch.ops import flash_attention as tfa
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
+    from anime_illust_image_searcher_tpu_torch.device import resolve_device
+
+    return resolve_device("cuda")   # also pins f32 matmuls and convs to full f32
+
+
+def f64_attention(q, k, v):
+    """Attention in f64: the yardstick of the f32 kernel and its plain version."""
+    q, k, v = q.double(), k.double(), v.double()
+    s = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    return torch.matmul(torch.softmax(s, dim=-1), v)
+
+
+def assert_f32_kernel_matches(q, k, v, dh):
+    """One f32 launch against the plain f32 version (1e-5 on N(0,1) inputs)
+    and against f64: the kernel's error at most twice the plain version's
+    plus 1e-6. Returns the kernel's output."""
+    bf16_before, before = dict(tfa.mha_attention.launches), dict(tfa.mha_attention.launches_f32)
+    got = tfa.mha_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert tfa.mha_attention.launches == bf16_before
+    assert tfa.mha_attention.launches_f32 == {**before, dh: before[dh] + 1}
+    plain = tfa.attention_reference(q, k, v)
+    exact = f64_attention(q, k, v)
+    assert torch.isfinite(got).all()
+    assert (got - plain).abs().max().item() <= 1e-5
+    kern_err = (got.double() - exact).abs().max().item()
+    plain_err = (plain.double() - exact).abs().max().item()
+    assert kern_err <= 2 * plain_err + 1e-6, (kern_err, plain_err)
+    return got
 
 
 @pytest.mark.cuda
@@ -31,10 +60,11 @@ def test_kernel_matches_plain_on_card(cuda, b, h, s):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(b, h, s, 64, generator=g, device=cuda).to(torch.bfloat16)
                for _ in range(3))
-    before = dict(tfa.mha_attention.launches)
+    before, before_f32 = dict(tfa.mha_attention.launches), dict(tfa.mha_attention.launches_f32)
     got = tfa.mha_attention(q, k, v)
     torch.cuda.synchronize()
     assert tfa.mha_attention.launches == {64: before[64] + 1, 32: before[32]}
+    assert tfa.mha_attention.launches_f32 == before_f32
     plain = tfa.attention_reference(q, k, v).float()
     exact = tfa.attention_reference(q.float(), k.float(), v.float())
     assert (got.float() - plain).abs().max().item() <= 2e-2
@@ -59,16 +89,127 @@ def test_kernel_takes_head_split_views(cuda):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
+    half = torch.zeros(1, 2, 8, 64, dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        tfa.mha_attention(half, half, half)             # f16 has no kernel
     q = torch.zeros(1, 2, 8, 64, device=cuda)
     with pytest.raises(TypeError):
-        tfa.mha_attention(q, q, q)                      # f32
-    q16 = torch.zeros(1, 2, 8, 16, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):
-        tfa.mha_attention(q16, q16, q16)                # Dh=16 is not built
+        tfa.mha_attention(q, q.to(torch.bfloat16), q)   # mixed dtypes
+    for dtype in (torch.bfloat16, torch.float32):
+        q16 = torch.zeros(1, 2, 8, 16, dtype=dtype, device=cuda)
+        with pytest.raises(ValueError):
+            tfa.mha_attention(q16, q16, q16)            # Dh=16 is not built
     x = torch.zeros(1, 8, 2 * 32 + 4, dtype=torch.bfloat16, device=cuda)
     q32 = x[..., 4:].view(1, 8, 2, 32).transpose(1, 2)  # 8-byte base, 136-byte rows
     with pytest.raises(ValueError):
         tfa.mha_attention(q32, q32, q32)
+    x = torch.zeros(1, 8, 2 * 32 + 4, device=cuda)
+    f32 = x[..., 2:66].view(1, 8, 2, 32).transpose(1, 2)  # f32: only the base is off
+    assert f32.data_ptr() % 16 == 8 and all(st % 4 == 0 for st in f32.stride()[:3])
+    with pytest.raises(ValueError):
+        tfa.mha_attention(f32, f32, f32)
+    x = torch.zeros(1, 8, 2 * 32 + 2, device=cuda)
+    rows = x[..., :64].view(1, 8, 2, 32).transpose(1, 2)  # 264-byte rows: stride 66
+    with pytest.raises(ValueError):
+        tfa.mha_attention(rows, rows, rows)
+
+
+# ------------------------------------------------------------- f32 (Dh 64, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 257, 1025])
+def test_f32_kernel_matches_plain_on_card(cuda, s):
+    """Dh=64 at the tiling's edges (64 query rows a block, 64-key tiles)."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn(2, 16, s, 64, generator=g, device=cuda) for _ in range(3))
+    assert_f32_kernel_matches(q, k, v, 64)
+
+
+@pytest.mark.cuda
+def test_f32_kernel_takes_head_split_views(cuda):
+    """The EVA02 layout: heads split off (B, S, H*Dh) f32 projections."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(3, 3, 1025, 16 * 64, generator=g, device=cuda)
+    q, k, v = (t.view(3, 1025, 16, 64).transpose(1, 2) for t in x)
+    got = assert_f32_kernel_matches(q, k, v, 64)
+    assert got.transpose(1, 2).is_contiguous()   # a (B, S, H, Dh) buffer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s", [
+    (2, 2, 1), (2, 2, 63), (2, 2, 64), (2, 2, 65), (2, 2, 129),
+    (2, 16, 144), (2, 10, 576),                 # CAFormer-24 stages 4 and 3 at 384²
+    (64, 16, 144),                              # 3072 blocks: more than one wave
+])
+def test_f32_dh32_kernel_on_qkv_views_matches_plain(cuda, b, h, s):
+    """Dh=32 on the head-split views of a (B, N, 3C) f32 qkv projection, with
+    garbage in the rows past S and between the heads' views."""
+    c = 32 * h
+    g = torch.Generator(device=cuda).manual_seed(s)
+    buf = torch.randn(b, s + 7, 3 * c, generator=g, device=cuda)
+    q, k, v = buf[:, :s].view(b, s, 3, h, 32).permute(2, 0, 3, 1, 4).unbind(0)
+    assert q.stride() == (buf.stride(0), 32, 3 * c, 1) and k.data_ptr() - q.data_ptr() == 4 * c
+    assert_f32_kernel_matches(q, k, v, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [2, 1])    # head dim 32 and 64
+def test_tiny_f32_tagger_on_card_matches_cpu(cuda, heads):
+    """A small f32 EVA02 through the f32 kernel on the card gives the CPU's
+    logits within 5e-5 x max(1, |logit|), the off-CPU f32 bound of
+    tests/test_eva02_oracle.py."""
+    import dataclasses
+
+    import numpy as np
+
+    from anime_illust_image_searcher_tpu_torch.models import eva02
+
+    cfg = dataclasses.replace(eva02.tiny_test_config(), num_heads=heads)
+    assert cfg.dtype == torch.float32
+    cpu = eva02.Eva02(cfg, device="cpu")
+    eva02.init_params(cpu, seed=0)
+    card = eva02.Eva02(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).rand(4, 56, 56, 3).astype(np.float32))
+    before, before_f32 = dict(tfa.mha_attention.launches), dict(tfa.mha_attention.launches_f32)
+    want = eva02.forward_logits(cpu.eval(), x)
+    got = eva02.forward_logits(card.eval(), x.to(cuda)).cpu()
+    assert tfa.mha_attention.launches == before
+    dh = cfg.embed_dim // cfg.num_heads
+    assert tfa.mha_attention.launches_f32 == {**before_f32, dh: before_f32[dh] + cfg.depth}
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert ((got - want).abs() <= 5e-5 * want.abs().clamp_min(1)).all(), \
+        (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_tiny_f32_caformer_on_card_matches_cpu(cuda):
+    """A small f32 CAFormer (attention at Dh=32) through the f32 kernel on the
+    card gives the CPU's unit features within 5e-5."""
+    import dataclasses
+
+    import numpy as np
+
+    from anime_illust_image_searcher_tpu_torch.models import caformer
+
+    cfg = dataclasses.replace(caformer.tiny_test_config(), num_heads=(0, 0, 3, 4),
+                              dims=(16, 32, 96, 128), feature_dim=64)
+    assert cfg.dtype == torch.float32
+    cpu = caformer.CAFormer(cfg, device="cpu")
+    caformer.init_params(cpu, seed=0)
+    card = caformer.CAFormer(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    imgs = np.random.RandomState(0).randint(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    mean, std = (0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)
+    before, before_f32 = dict(tfa.mha_attention.launches), dict(tfa.mha_attention.launches_f32)
+    want = caformer.extract_features(cpu, torch.from_numpy(imgs), mean, std)
+    got = caformer.extract_features(card, torch.from_numpy(imgs).to(cuda), mean, std).cpu()
+    assert tfa.mha_attention.launches == before
+    assert tfa.mha_attention.launches_f32 == {64: before_f32[64], 32: before_f32[32] + 2}
+    unit = lambda f: f / f.norm(dim=-1, keepdim=True)  # noqa: E731
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (unit(got) - unit(want)).abs().max().item() <= 5e-5
 
 
 @pytest.mark.cuda
@@ -86,10 +227,11 @@ def test_dh32_kernel_on_qkv_views_matches_plain(cuda, b, h, s):
     buf = torch.randn(b, s + 7, 3 * c, generator=g, device=cuda).to(torch.bfloat16)
     q, k, v = buf[:, :s].view(b, s, 3, h, 32).permute(2, 0, 3, 1, 4).unbind(0)
     assert q.stride() == (buf.stride(0), 32, 3 * c, 1) and k.data_ptr() - q.data_ptr() == 2 * c
-    before = dict(tfa.mha_attention.launches)
+    before, before_f32 = dict(tfa.mha_attention.launches), dict(tfa.mha_attention.launches_f32)
     got = tfa.mha_attention(q, k, v)
     torch.cuda.synchronize()
     assert tfa.mha_attention.launches == {64: before[64], 32: before[32] + 1}
+    assert tfa.mha_attention.launches_f32 == before_f32
     plain = tfa.attention_reference(q, k, v).float()
     exact = tfa.attention_reference(q.float(), k.float(), v.float())
     assert torch.isfinite(got.float()).all()
@@ -117,10 +259,11 @@ def test_tiny_caformer_on_card_matches_cpu(cuda):
     card.load_state_dict(cpu.state_dict())
     imgs = np.random.RandomState(0).randint(0, 256, (4, 64, 64, 3), dtype=np.uint8)
     mean, std = (0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)
-    before = dict(tfa.mha_attention.launches)
+    before, before_f32 = dict(tfa.mha_attention.launches), dict(tfa.mha_attention.launches_f32)
     want = caformer.extract_features(cpu, torch.from_numpy(imgs), mean, std)
     got = caformer.extract_features(card, torch.from_numpy(imgs).to(cuda), mean, std).cpu()
     assert tfa.mha_attention.launches == {64: before[64], 32: before[32] + 2}
+    assert tfa.mha_attention.launches_f32 == before_f32
     unit = lambda f: f / f.norm(dim=-1, keepdim=True)  # noqa: E731
     assert torch.isfinite(got).all()
     # an element of a unit F-d vector is about F^-1/2 (0.125 here): allow 15%
@@ -148,12 +291,13 @@ def test_tiny_tagger_on_card_matches_cpu(cuda):
     imgs = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (4, 56, 56, 3),
                                                              dtype=np.uint8))
     half = [0.5, 0.5, 0.5]
-    before = dict(tfa.mha_attention.launches)
+    before, before_f32 = dict(tfa.mha_attention.launches), dict(tfa.mha_attention.launches_f32)
     with torch.inference_mode():
         want = tagger._predict_probs(cpu.eval(), imgs, torch.tensor(half), torch.tensor(half))
         got = tagger._predict_probs(card.eval(), imgs.to(cuda), torch.tensor(half, device=cuda),
                                     torch.tensor(half, device=cuda)).cpu()
     assert tfa.mha_attention.launches == {64: before[64] + cfg.depth, 32: before[32]}
+    assert tfa.mha_attention.launches_f32 == before_f32
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 2e-2
 
