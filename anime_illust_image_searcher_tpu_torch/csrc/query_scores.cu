@@ -14,10 +14,8 @@
 // (D, W, Q) match tensor (1 GB in f32 at 1M docs, W=32, Q=8), or makes Q
 // passes over the term matrix.
 //
-// The fused query also launches it with W = Q = 0 for its rerank product
-// matrix @ mean (the JAX program's second matvec, :357), and the character
-// query for every 1 - cos at F=768: sims only, in the same per-row order for
-// any B, so a query's scores do not depend on the micro-batch it rides in.
+// With W = Q = 0 it still computes the sims alone; that route is the
+// yardstick of the second kernel below, which the port launches instead.
 //
 // Inputs: matrix (D, F) f32 unit rows; term_mat (D, W) int32 padded with the
 // sentinel vocab_size (term ids are >= 0); contrib_mat (D, W) f32 padded with
@@ -93,6 +91,44 @@
 // bit-identically (the elbow cut maps a zero score difference to +inf and
 // relies on it), and the outputs keep the bits of the one-row-a-warp kernel
 // this design replaced. No atomics on the outputs.
+//
+// The second kernel, matvecs_kernel (C entries aiis_matvecs and
+// aiis_matvecs_plan): out[b, d] = sum_f matrix[d, f] * vecs[b, f] for B <= 8
+// f32 vectors, with no term slots. It replaces two XLA dots in full f32 (no
+// TF32): the fused query's rerank product jnp.dot(matrix, mean,
+// precision=HIGHEST) (anime_illust_image_searcher_tpu/ops/fused_query.py:357)
+// and the character query's 1 - jnp.dot(m, q) (models/caformer.py:306, :329),
+// at F=300 and F=768 over every doc row.
+//   bound : a pure stream, 4 D F + 4 B F bytes read and 4 B D written: at
+//           D=1M, F=768, B=1, 3.076 GB, 0.918 ms at 3.35 TB/s; its 2 B D F
+//           FMA flops stay under 0.2 ms at 67 TFLOP/s even at B=8.
+//   loads : no staging. Each row is read by one warp and used once, so a
+//           shared-memory ring (the scoring kernel's cp.async.bulk tiles on
+//           mbarriers) only adds a barrier round trip a tile and the set-up
+//           of a sweep this job does not have. Each lane streams its rows with
+//           16-byte ld.global.nc loads that skip L1 (scalar loads where F % 4
+//           != 0 or the base is not 16-byte aligned), all R rows of its group
+//           in flight at once: R = 32 / kB rows a warp group, 32 rows (16 KB a
+//           warp a step at B=1), far past the ~25 KB an SM that Little's law
+//           asks at 3.35 TB/s.
+//   block : 8 warps; warp w of the grid takes groups w, w + 8 x grid, ...
+//           (R rows each, the last ragged). The grid gives each warp the
+//           fewest groups that stream 32 KB, so blocks are short-lived and
+//           the hardware balances the SMs (a persistent grid's static split
+//           left a tail).
+//   query : the B vectors in shared memory, rows padded to a multiple of 4
+//           floats, read as float4 a step and shared by the group's R rows.
+//   sums  : kB in {1, 2, 4, 8} (B = 1, 2, 3..4, 5..8) slots, R x kB = 32
+//           partial sums a lane: B a row, never the scoring kernel's 4 B.
+//   store : one transpose-reduce of the 32 sums (31 shuffles, offsets 16, 8,
+//           4, 2, 1) leaves lane L with sum L, query L / R, row L % R, so a
+//           group's scores leave as runs of R consecutive floats: whole 128-
+//           byte lines at B=1, 64 / 32 / 16 bytes at kB = 2 / 4 / 8.
+// The arithmetic order is the scoring kernel's, so both give the same bits:
+// lanes stride over F by float4 (or float), each lane's sum for query b
+// updated by fmaf in the order x, y, z, w, then the xor tree over the warp at
+// offsets 16, 8, 4, 2, 1. Only how the rows reach the lanes differs. Duplicate
+// rows keep identical sums, and a query the same bits alone and in a batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -629,6 +665,200 @@ int dispatch(const void* matrix, const void* term_mat, const void* contrib_mat,
   return vec4 ? launch<true, kMaxB>(a, st, report) : launch<false, kMaxB>(a, st, report);
 }
 
+// ---- matvecs_kernel: the sims alone, for B <= 8 vectors (the header's second kernel)
+
+constexpr int kMvWarps = 8;
+constexpr int kMvThreads = kMvWarps * 32;
+constexpr long long kMvWarpBytes = 32 * 1024;   // matrix bytes a warp streams, at least, a block
+// partial sums a lane, rows x query slots: the 32 that transpose_step takes
+constexpr int kMvSums = 4 * kMaxB;
+
+// A 16-byte load of a matrix row, read once: no L1 line. (An L2::256B
+// prefetch hint cost 8% on an H100 at F=300, whose 1200-byte rows cross
+// 256-byte blocks.) volatile: the compiler must not speculate a load past a
+// ragged group's end.
+__device__ __forceinline__ float4 ld_stream(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float ld_stream(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// One warp group's partial sums: v[b * R + r] for row r of `rows` and query
+// b, R = kMvSums / kB rows (n of them real; kFull: all R). All R rows' loads
+// of a step are issued before its FMAs.
+template <bool kVec4, int kB, bool kFull>
+__device__ __forceinline__ void group_sums(const float* __restrict__ rows, const float* qv,
+                                           int pitch, int F, int B, int n, int lane,
+                                           float (&v)[kMvSums]) {
+  constexpr int R = kMvSums / kB;
+  if constexpr (kVec4) {
+    const int n4 = F >> 2;
+    const float4* rows4 = reinterpret_cast<const float4*>(rows);
+    for (int f4 = lane; f4 < n4; f4 += 32) {
+      float4 m[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        m[r] = (kFull || r < n) ? ld_stream(rows4 + static_cast<size_t>(r) * n4 + f4)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        if (b < B) {
+          const float4 q = *reinterpret_cast<const float4*>(qv + b * pitch + 4 * f4);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float& s = v[b * R + r];
+            s = fmaf(m[r].x, q.x, s);
+            s = fmaf(m[r].y, q.y, s);
+            s = fmaf(m[r].z, q.z, s);
+            s = fmaf(m[r].w, q.w, s);
+          }
+        }
+      }
+    }
+  } else {
+    for (int f = lane; f < F; f += 32) {
+      float m[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        m[r] = (kFull || r < n) ? ld_stream(rows + static_cast<size_t>(r) * F + f) : 0.f;
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        if (b < B) {
+          const float q = qv[b * pitch + f];
+#pragma unroll
+          for (int r = 0; r < R; ++r) v[b * R + r] = fmaf(m[r], q, v[b * R + r]);
+        }
+      }
+    }
+  }
+}
+
+// Warp w of the grid takes groups w, w + 8 x grid, ... (R rows each, the
+// last ragged).
+template <bool kVec4, int kB>
+__global__ void __launch_bounds__(kMvThreads) matvecs_kernel(const float* __restrict__ matrix,
+                                                             const float* __restrict__ vecs,
+                                                             long long D, int F, int B,
+                                                             float* __restrict__ out) {
+  constexpr int R = kMvSums / kB;
+  extern __shared__ __align__(16) float mv_query[];    // B x pitch
+  const int pitch = row_pitch(F);
+  for (int i = threadIdx.x; i < B * F; i += kMvThreads) {
+    const int b = i / F;
+    mv_query[b * pitch + (i - b * F)] = vecs[i];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const long long groups = (D + R - 1) / R;
+  const long long stride = static_cast<long long>(gridDim.x) * kMvWarps;
+  for (long long g = static_cast<long long>(blockIdx.x) * kMvWarps + (threadIdx.x >> 5);
+       g < groups; g += stride) {
+    const long long d0 = g * R;
+    const int n = D - d0 < R ? static_cast<int>(D - d0) : R;
+    const float* rows = matrix + d0 * F;
+    float v[kMvSums];
+#pragma unroll
+    for (int j = 0; j < kMvSums; ++j) v[j] = 0.f;
+    if (n == R) {
+      group_sums<kVec4, kB, true>(rows, mv_query, pitch, F, B, n, lane, v);
+    } else {
+      group_sums<kVec4, kB, false>(rows, mv_query, pitch, F, B, n, lane, v);
+    }
+    // the scoring kernel's pairs (offsets 16, 8, 4, 2, 1): lane L ends with
+    // sum L, query L / R, row L % R
+    transpose_step<32>(v, lane);
+    transpose_step<16>(v, lane);
+    transpose_step<8>(v, lane);
+    transpose_step<4>(v, lane);
+    transpose_step<2>(v, lane);
+    const int b = lane / R, r = lane % R;
+    if (b < B && r < n) out[static_cast<size_t>(b) * D + d0 + r] = v[0];
+  }
+}
+
+// Past 48 KB of shared memory (B x F past 12,288 floats) the kernel form
+// must be allowed more first, once a device; the allowance only grows, so a
+// smaller shape launched after a larger one stays within it.
+template <bool kVec4, int kB>
+cudaError_t mv_allow(size_t smem) {
+  static std::mutex mu;
+  static std::map<int, size_t> allowed;      // by device
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& now = allowed[device];
+  if (smem <= now) return cudaSuccess;
+  err = cudaFuncSetAttribute(matvecs_kernel<kVec4, kB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) now = smem;
+  return err;
+}
+
+template <bool kVec4, int kB>
+int mv_launch(const float* matrix, const float* vecs, long long D, int F, int B, float* out,
+              cudaStream_t stream, int* report) {
+  constexpr int R = kMvSums / kB;
+  const size_t smem = 4ull * B * row_pitch(F);
+  cudaError_t err = mv_allow<kVec4, kB>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // A grid of short-lived blocks, not a persistent one: the hardware hands
+  // each SM a new block as one ends, where a persistent grid's static split
+  // of the groups left a tail (2% on an H100 at F=768, B=8). Each warp still
+  // takes the fewest groups that stream kMvWarpBytes, so that a narrow
+  // matrix's small groups (4 rows of 1200 bytes at F=300, kB=8) do not pay a
+  // block's start, the query copy and its barrier, every few KB (17% there at
+  // one group a warp).
+  const long long group_bytes = 4ll * R * F;
+  const int per_warp = static_cast<int>((kMvWarpBytes + group_bytes - 1) / group_bytes);
+  const long long groups = (D + R - 1) / R;
+  const long long blocks = (groups + kMvWarps * per_warp - 1) / (kMvWarps * per_warp);
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(blocks);
+  if (report) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, matvecs_kernel<kVec4, kB>,
+                                                        kMvThreads, smem);
+    report[0] = R;
+    report[1] = per_warp;
+    report[2] = static_cast<int>(smem);
+    report[3] = per_sm;
+    report[4] = grid;
+    return static_cast<int>(err);
+  }
+  matvecs_kernel<kVec4, kB><<<grid, kMvThreads, smem, stream>>>(matrix, vecs, D, F, B, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec4>
+int mv_by_batch(const float* matrix, const float* vecs, long long D, int F, int B, float* out,
+                cudaStream_t stream, int* report) {
+  if (B == 1) return mv_launch<kVec4, 1>(matrix, vecs, D, F, B, out, stream, report);
+  if (B == 2) return mv_launch<kVec4, 2>(matrix, vecs, D, F, B, out, stream, report);
+  if (B <= 4) return mv_launch<kVec4, 4>(matrix, vecs, D, F, B, out, stream, report);
+  return mv_launch<kVec4, kMaxB>(matrix, vecs, D, F, B, out, stream, report);
+}
+
+int mv_dispatch(const void* matrix, const void* vecs, long long D, int F, int B, void* out,
+                void* stream, int* report) {
+  if (D < 1 || F < 1 || B < 1 || B > kMaxB) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* m = static_cast<const float*>(matrix);
+  const auto* q = static_cast<const float*>(vecs);
+  auto* o = static_cast<float*>(out);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if ((F % 4 == 0) && aligned16(matrix)) return mv_by_batch<true>(m, q, D, F, B, o, st, report);
+  return mv_by_batch<false>(m, q, D, F, B, o, st, report);
+}
+
 }  // namespace
 
 // Returns 0 or a cudaError_t. The wrapper (ops/query_scores.py) checks shapes,
@@ -650,4 +880,20 @@ extern "C" int aiis_query_scores_plan(
     long long D, int F, int W, int Q, int B, int* report) {
   return dispatch(matrix, term_mat, contrib_mat, nullptr, D, F, W, Q, B, nullptr, nullptr,
                   nullptr, nullptr, nullptr, report);
+}
+
+// out (B, D) = vecs (B, F) . matrix (D, F)^T for B in 1..8, f32, row-major and
+// contiguous. Returns 0 or a cudaError_t; the wrapper (ops/query_scores.py
+// matvecs) checks shapes, types, contiguity and B before it calls this.
+extern "C" int aiis_matvecs(const void* matrix, const void* vecs, long long D, int F, int B,
+                            void* out, void* stream) {
+  return mv_dispatch(matrix, vecs, D, F, B, out, stream, nullptr);
+}
+
+// The launch aiis_matvecs would make for these arguments, without making it:
+// report = {R rows a warp group, groups a warp a block, dynamic shared memory
+// bytes a block, blocks an SM, grid}. For measurement scripts; returns 0 or a
+// cudaError_t.
+extern "C" int aiis_matvecs_plan(const void* matrix, long long D, int F, int B, int* report) {
+  return mv_dispatch(matrix, nullptr, D, F, B, nullptr, nullptr, report);
 }

@@ -13,6 +13,19 @@ The kernel is ``csrc/query_scores.cu`` (its header gives the design and the
 bound). ``query_scores`` launches it for CUDA tensors and raises if it cannot;
 it takes the plain version ``query_scores_reference`` only for tensors on the
 CPU. There is no fallback from the card to the plain version or to the CPU.
+
+``matvecs`` is the sims alone, ``out[b, d] = matrix[d] . vecs[b]`` for B <= 8
+vectors: the port of the JAX package's rerank product
+``jnp.dot(matrix, mean, precision=HIGHEST)`` (ops/fused_query.py:357) and of
+the character query's ``1 - jnp.dot(m, q)`` (models/caformer.py:306, :329),
+both in full f32. It is a second kernel of the same source,
+``matvecs_kernel`` (C entry ``aiis_matvecs``): a pure stream of the matrix,
+bound by its 4 D F bytes (plus 4 B F read and 4 B D written), which each warp
+reads with 16-byte loads, 32 / kB rows of a group in flight, no shared-memory
+staging, and stores as runs of consecutive scores. Its sums take the scoring
+kernel's order (lanes over F by float4, fmaf x, y, z, w, the xor tree at
+offsets 16 .. 1), so it gives the bits of ``query_scores`` with no term
+slots, the route it replaced. On the CPU it is ``plain_matvecs``.
 """
 
 from __future__ import annotations
@@ -83,21 +96,69 @@ def query_scores_reference(matrix: torch.Tensor, term_mat: torch.Tensor,
     return sims, bm25, excl_hits, req_hits
 
 
+def _check_matvecs_inputs(matrix: torch.Tensor, vecs: torch.Tensor) -> None:
+    """The contract of ``matvecs`` on either device: f32, 2-D and contiguous,
+    one F, 1..8 vectors."""
+    for name, t in (("matrix", matrix), ("vecs", vecs)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"matvecs: {name} must be torch.float32, got {t.dtype}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"matvecs: {name} must be a contiguous 2-D tensor")
+    if vecs.shape[1] != matrix.shape[1] or matrix.shape[1] < 1:
+        raise ValueError(f"matvecs: matrix {tuple(matrix.shape)} and vecs "
+                         f"{tuple(vecs.shape)} must share F >= 1")
+    if not 1 <= vecs.shape[0] <= MAX_BATCH:
+        raise ValueError(f"matvecs: {vecs.shape[0]} vectors; the kernel takes 1..{MAX_BATCH}")
+
+
 def matvecs(matrix: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
-    """(D, F) x (B, F) -> (B, D), B <= 8: the ``sims`` output of
-    ``query_scores`` for queries with no term slots (Q = 0, an empty term
-    matrix), so the kernel skips the sweep. Each row's sum depends on its
-    contents alone, whatever B is."""
-    d, b = matrix.shape[0], vecs.shape[0]
-    packed = torch.cat([vecs, vecs.new_zeros((b, 1))], dim=1)      # [qvec | n_req]
-    empty = matrix.new_empty((d, 0))
-    return query_scores(matrix, empty.to(torch.int32), empty, packed)[0]
+    """(D, F) x (B, F) -> (B, D), B <= 8, each row's sum in the order of
+    ``query_scores``' sims, whatever B is.
+
+    CPU tensors go through ``plain_matvecs``. CUDA tensors (both on one card,
+    D >= 1) go through the ``aiis_matvecs`` kernel, one launch a call, which
+    adds one to ``matvecs.launches`` and to ``matvecs.launches_by_form``
+    ("B=b") under a lock; it raises if the kernel cannot be built or launched.
+    Bad arguments raise before anything is built or launched."""
+    _check_matvecs_inputs(matrix, vecs)
+    if matrix.device.type == "cpu" and vecs.device.type == "cpu":
+        return plain_matvecs(matrix, vecs)
+    for name, t in (("matrix", matrix), ("vecs", vecs)):
+        if t.device.type != "cuda" or t.device != matrix.device:
+            raise ValueError(f"matvecs: {name} is on {t.device}; both inputs must be on "
+                             "one CUDA device (or both on the CPU)")
+    d, f = matrix.shape
+    b = vecs.shape[0]
+    if d < 1:
+        raise ValueError("matvecs: the kernel needs at least one matrix row")
+    out = torch.empty((b, d), dtype=torch.float32, device=matrix.device)
+    err = _entry(_bind_matvecs)(matrix.data_ptr(), vecs.data_ptr(), d, f, b, out.data_ptr(),
+                                torch.cuda.current_stream(matrix.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"matvecs kernel launch failed: CUDA error {err}")
+    form = f"B={b}"
+    with _lock:
+        matvecs.launches += 1
+        matvecs.launches_by_form[form] = matvecs.launches_by_form.get(form, 0) + 1
+    return out
+
+
+matvecs.launches = 0
+matvecs.launches_by_form = {}
 
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.aiis_query_scores
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_matvecs(lib: ctypes.CDLL):
+    fn = lib.aiis_matvecs
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -126,17 +187,18 @@ def _check_cuda_inputs(matrix, term_mat, contrib_mat, packed) -> None:
 
 
 _lock = threading.Lock()
-_kernel_fn = None
+_entries: dict = {}
 
 
-def _kernel():
-    """The kernel's C entry point, built, loaded and bound once."""
-    global _kernel_fn
-    if _kernel_fn is None:
+def _entry(binder):
+    """A C entry point of the kernels' library, built, loaded and bound once."""
+    fn = _entries.get(binder)
+    if fn is None:
         with _lock:
-            if _kernel_fn is None:
-                _kernel_fn = _bind(_build.load(KERNEL))
-    return _kernel_fn
+            fn = _entries.get(binder)
+            if fn is None:
+                fn = _entries[binder] = binder(_build.load(KERNEL))
+    return fn
 
 
 def query_scores(matrix: torch.Tensor, term_mat: torch.Tensor,
@@ -160,7 +222,7 @@ def query_scores(matrix: torch.Tensor, term_mat: torch.Tensor,
     bm25 = torch.empty((b, d), dtype=torch.float32, device=dev)
     excl_hits = torch.empty((b, d), dtype=torch.int32, device=dev)
     req_hits = torch.empty((b, d), dtype=torch.int32, device=dev)
-    err = _kernel()(
+    err = _entry(_bind)(
         matrix.data_ptr(), term_mat.data_ptr(), contrib_mat.data_ptr(), packed.data_ptr(),
         d, f, term_mat.shape[1], q, b,
         sims.data_ptr(), bm25.data_ptr(), excl_hits.data_ptr(), req_hits.data_ptr(),
@@ -179,7 +241,8 @@ query_scores.launches_by_form = {}
 
 
 def reset_launches() -> None:
-    """Zero the launch count and its split by form."""
+    """Zero both kernels' launch counts and their splits by form."""
     with _lock:
-        query_scores.launches = 0
-        query_scores.launches_by_form.clear()
+        for fn in (query_scores, matvecs):
+            fn.launches = 0
+            fn.launches_by_form.clear()

@@ -67,9 +67,16 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                cannot take, 8 queries with one id list or disjoint lists, the
                largest shared memory), each query of a batch equal alone; then
                times at D=1M, F=300, W=32 for B=1/8 and Q=8/64/256 beside the
-               plain version and the bound, the rerank form (no term slots)
-               at F=300 and F=768 beside ``torch.mv``, the kernel's launch plan
-               and ptxas registers;
+               plain version and the bound, the kernel's launch plan and
+               ptxas registers. Then the matvecs kernel (the rerank product
+               and every 1 - cos: csrc/query_scores.cu's second kernel)
+               torch.equal to the old route (the query-scores kernel with no
+               term slots) at every B in 1..8 for D = 1, 31, 33, 97, 100,003
+               and F = 1, 7, 300, 768 (duplicate rows bit-equal) and at bases
+               that are not 16-byte aligned, within QUERY_TOL of the plain
+               version, each query alone equal to its batch; timed at D=1M,
+               B=1, F=300 and F=768 in turns with the old route and
+               ``torch.mv``; its launch plan and ptxas registers;
   8. query main — a 1M-doc artifact chain (300-d rows, Zipf-like 10k-tag
                vocabulary, 10-30 tags a doc, 500 long docs spilling into the
                COO overflow) written in the loaders' formats with its BM25
@@ -80,7 +87,7 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                (find_similar_documents + search), 32 batches of 8
                (find_similar_documents_batch), a 40-term and a 200-term query:
                engine ms p50/p99, each dispatch's CUDA-event ms, a profiled
-               window (busy share, the kernel's share of device time);
+               window (busy share, the K5 kernels' share of device time);
   9. serve   — the web server over the same engine, from a client process:
                a burst of 16 concurrent /api/search requests, then 16 threads
                sending 32 requests each; requests/s, latency p50/p99, every
@@ -134,8 +141,10 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                of 8 through the batched character program (each answer the
                single-query answer), 16 client threads of character requests
                through the web server (`ccip convert`, `learned metric`,
-               `character batch` JSON lines, the last with the query-scores
-               kernel's launches by form and B and its times at B = 2, 4, 8).
+               `character batch` JSON lines, the last with both K5 kernels'
+               launches by form and B, and the matvecs kernel at B = 2, 4, 8
+               on the cfeature rows held to the old route's bits and timed in
+               turns with it and ``torch.mm``).
  17. data parallel — --data-parallel's path (runs after 13, before 15, while
                phase 12's PNGs exist): (a) TaggerPredictor at full width, B=256,
                with no mesh, with ``make_mesh()`` (the card) and with a mesh
@@ -223,7 +232,7 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                genmodel's artifacts byte-equal to phase 14's build, every
                served answer equal to engine.search, each kernel library built
                in the fresh cache under the tree's file name, 48 Dh=64, 18 Dh=32
-               and some query-scores launches from the archive. Then
+               and as many query-scores as matvecs launches from the archive. Then
                CAFormer(fast_variance=True) at full width, depth (1, 1, 2, 1),
                B=8, bf16 and f32 on the card against the CPU within phases 10's
                and 10b's tolerances, and tools/quant_report_torch.py --batch 32
@@ -236,18 +245,20 @@ around phase 16's end-to-end runs (24 launches per forward), at Dh=32 around
 phases 11-13 (18 launches per CAFormer forward) and around phase 15; the f32
 attention kernel (its own counts) at Dh=64 around phase 4b and at Dh=32
 around phase 10b's CAFormer-24 run, each window also checking that the other
-dtype's kernel did not launch; the query-scores kernel around phases 8-9's
-served traffic (2 launches per dispatch of the fused program, counted in each
-phase), around phase 13 (2 per character pass of 1 to 8 queries, 1 more per
-second dispatch) and around phase 15. Phase 17 sets both kernels' counts to 0
-at its start (the query-scores kernel's after its unsharded references): 24
-Dh=64 launches a shard forward of the tagger, 18 Dh=32 launches a shard
-forward of the CAFormer, one query-scores launch (``matvecs B=1``) a shard a
-sharded ``top_k`` or ``scores`` call. Phase 18 sets the query-scores count to
-0 before each mesh's work and reads it after: 2 launches a shard for each
-normal dispatch and for each one-dispatch character pass, 1 for each
-full-diffs dispatch, and 2 a shard for each served dispatch. Phase 20's
-archive process sets every count to 0 before each CLI run and reads it after.
+dtype's kernel did not launch; the two K5 kernels, query-scores and matvecs,
+each with its own count, around phases 8-9's served traffic (one launch of
+each per dispatch of the fused program, counted in each phase), around phase
+13 (one of each per character pass of 1 to 8 queries, one more matvecs launch
+per second dispatch) and around phase 15. Phase 17 sets the attention counts
+to 0 at its start and the K5 counts after its unsharded references: 24 Dh=64
+launches a shard forward of the tagger, 18 Dh=32 launches a shard forward of
+the CAFormer, one matvecs launch (B=1) a shard a sharded ``top_k`` or
+``scores`` call and no query-scores launch. Phase 18 sets the K5 counts to 0
+before each mesh's work and reads them after: one launch of each a shard for
+each normal dispatch and for each one-dispatch character pass, one more
+matvecs launch for each full-diffs dispatch, and one of each a shard for each
+served dispatch. Phase 20's archive process sets every count to 0 before each
+CLI run and reads it after.
 The last two lines are a ``kernels`` JSON object and the device line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no result.
 """
@@ -1349,6 +1360,8 @@ def _ccip_group(name: str) -> str:
         return "attention kernel"
     if "query_scores" in name:
         return "query_scores kernel"
+    if "matvecs_kernel" in name:
+        return "matvecs kernel"
     if any(t in low for t in ("gemm", "cutlass", "cublas", "nvjet")) or "Kernel2" in name:
         return "gemm"
     if "depthwise" in low:
@@ -1704,16 +1717,23 @@ def query_plan(qs, build):
     return plan
 
 
-def ptxas_report(log: str) -> dict:
-    """Registers and spill stores of each kernel form (float4 or scalar rows,
-    B = 1 or 2..8) in nvcc's -Xptxas -v output; empty where this process
+def ptxas_report(log: str, kernel: str = "query_scores_kernel") -> dict:
+    """Registers and spill stores of each form of ``kernel`` (float4 or scalar
+    rows; the scoring kernel at B = 1 or 2..8, matvecs_kernel at kB = 1, 2,
+    4, 8 query slots) in nvcc's -Xptxas -v output; empty where this process
     found the library built."""
     forms, form = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S+ILb([01])ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*?(query_scores_kernel|matvecs_kernel)"
+                      r"ILb([01])ELi(\d+)E", line)
         if m:
-            rows, batch = ("scalar", "float4")[int(m.group(1))], m.group(2)
-            form = f"{rows} B{'=1' if batch == '1' else '<=8'}"
+            rows, batch = ("scalar", "float4")[int(m.group(2))], m.group(3)
+            if m.group(1) != kernel:
+                form = None
+            elif kernel == "query_scores_kernel":
+                form = f"{rows} B{'=1' if batch == '1' else '<=8'}"
+            else:
+                form = f"{rows} kB={batch}"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and form:
             forms.setdefault(form, {})["spill_store_bytes"] = int(m.group(1))
@@ -1723,29 +1743,151 @@ def ptxas_report(log: str) -> dict:
     return forms
 
 
-def time_matvecs(torch, qs, matrix, vec) -> dict:
-    """The rerank / 1 - cos form (no term slots) at B=1, held against the plain
-    version, then timed in turns with torch.mv on the same vector (kernel,
-    torch.mv, torch.mv, kernel); its bound is bytes: the rows and the vector
-    read once, the scores written once."""
+def old_route(torch, qs, matrix, vecs):
+    """The sims of the scoring kernel with no term slots: the route that the
+    matvecs kernel replaced, whose bits it must give."""
+    d, b = matrix.shape[0], vecs.shape[0]
+    packed = torch.cat([vecs, vecs.new_zeros((b, 1))], dim=1)
+    empty = matrix.new_empty((d, 0))
+    return qs.query_scores(matrix, empty.to(torch.int32), empty, packed)[0]
+
+
+def matvecs_bound(d, f, b):
+    """(bound ms, bound_by) of one matvecs launch: the rows and the B vectors
+    read once, the (B, D) scores written once; 2 B D F f32 flops."""
+    t_bytes = (d * f + b * f + b * d) * 4 / PEAK_BYTES * 1e3
+    t_ops = 2 * b * d * f / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_matvecs(torch, qs, matrix, vecs, label: str) -> float:
+    """One launch of the matvecs kernel: torch.equal to the old route,
+    within QUERY_TOL (relative) of the plain version, each query the same
+    bits alone as in its batch. Returns max |kernel - plain|."""
+    got = qs.matvecs(matrix, vecs)
+    torch.cuda.synchronize()
+    check(torch.equal(got, old_route(torch, qs, matrix, vecs)),
+          f"matvecs differ from the scoring kernel's bits at {label}")
+    plain = qs.plain_matvecs(matrix, vecs)
+    rel = ((got - plain).abs() / plain.abs().clamp_min(1.0)).max().item()
+    check(rel <= QUERY_TOL, f"matvecs: {rel} > {QUERY_TOL} from plain at {label}")
+    for i in range(vecs.shape[0] if vecs.shape[0] > 1 else 0):
+        check(torch.equal(qs.matvecs(matrix, vecs[i:i + 1])[0], got[i]),
+              f"matvecs: query {i} alone and in its batch differ at {label}")
+    return (got - plain).abs().max().item()
+
+
+def time_matvecs(torch, qs, matrix, vecs, iters: int = 20) -> dict:
+    """The matvecs kernel, the old route (the scoring kernel with no term
+    slots) and the one library call for the same product (torch.mv at B=1,
+    torch.mm above), timed in turns on the same inputs: kernel, old, library,
+    library, old, kernel, each the mean of ``iters`` launches; beside the
+    bound."""
     d, f = matrix.shape
-    got = qs.matvecs(matrix, vec[None])
-    err = (got - qs.plain_matvecs(matrix, vec[None])).abs().max().item()
-    check(err <= QUERY_TOL, f"matvecs F={f} differ from plain by {err}")
-    runs = [cuda_ms(lambda: qs.matvecs(matrix, vec[None]), iters=20)]
-    mv_runs = [cuda_ms(lambda: torch.mv(matrix, vec), iters=20) for _ in range(2)]
-    runs.append(cuda_ms(lambda: qs.matvecs(matrix, vec[None]), iters=20))
-    ms, bound = sum(runs) / 2, (d * f + f + d) * 4 / PEAK_BYTES * 1e3
-    return dict(ms=ms, runs=runs, torch_mv_ms=sum(mv_runs) / 2, torch_mv_runs=mv_runs,
-                bound_ms=bound, share_of_bound=bound / ms, max_abs_err=err)
+    b = vecs.shape[0]
+    lib = ((lambda: torch.mv(matrix, vecs[0])) if b == 1
+           else (lambda: torch.mm(matrix, vecs.T)))
+    fns = dict(ms=lambda: qs.matvecs(matrix, vecs),
+               old_route_ms=lambda: old_route(torch, qs, matrix, vecs), library_ms=lib)
+    runs: dict = {k: [] for k in fns}
+    for k in ("ms", "old_route_ms", "library_ms", "library_ms", "old_route_ms", "ms"):
+        runs[k].append(cuda_ms(fns[k], iters=iters))
+    bound, by = matvecs_bound(d, f, b)
+    res = {k: sum(v) / 2 for k, v in runs.items()}
+    res.update(runs={k: v for k, v in runs.items()}, bound_ms=bound, bound_by=by,
+               share_of_bound=bound / res["ms"],
+               library=("torch.mv" if b == 1 else "torch.mm"))
+    return res
+
+
+def matvecs_plan(qs, build):
+    """The matvecs kernel's own report of its launch: R rows a warp group,
+    groups a warp, dynamic shared memory a block, blocks an SM, grid."""
+    fn = build.load(qs.KERNEL).aiis_matvecs_plan
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def plan(d, f, b):
+        out = (ctypes.c_int * 5)()
+        if fn(256, d, f, b, out):       # only the base's alignment is read
+            return None
+        return dict(zip(("rows", "groups_per_warp", "smem_bytes", "blocks_per_sm", "grid"),
+                        out))
+    return plan
+
+
+def phase_matvecs(torch, qs, build) -> dict:
+    """Phase 7's second kernel, matvecs (the rerank product and the 1 - cos):
+    gates against the old route and the plain version at every B in 1..8 on
+    edge shapes (ragged last groups, F = 1 and 7, duplicate rows), at bases
+    that are not 16-byte aligned; then timed at D=1M, F=300 and F=768, B=1,
+    beside the old route and torch.mv; its launch plan and registers."""
+    g = torch.Generator(device=DEV).manual_seed(77)
+    max_err, n = 0.0, 0
+    for d in (1, 31, 33, 97, 100_003):
+        for f in (1, 7, 300, 768):
+            m = torch.nn.functional.normalize(torch.randn(d, f, device=DEV, generator=g), dim=1)
+            if d > 7:
+                dup = torch.arange(0, d - 1, 7, device=DEV)
+                m[dup + 1] = m[dup]
+            vecs = torch.randn(8, f, device=DEV, generator=g)
+            for b in range(1, 9):
+                got = qs.matvecs(m, vecs[:b])
+                check(torch.equal(got, old_route(torch, qs, m, vecs[:b])),
+                      f"matvecs differ from the scoring kernel's bits at D={d} F={f} B={b}")
+                if d > 7:
+                    check(torch.equal(got[:, dup], got[:, dup + 1]),
+                          f"matvecs: duplicate rows differ at D={d} F={f} B={b}")
+                n += 1
+            max_err = max(max_err, check_matvecs(torch, qs, m, vecs, f"D={d} F={f} B=8"))
+    for f, offset in ((7, 7), (300, 1), (768, 2)):
+        buf = torch.empty(20_011 * f + offset, device=DEV)
+        m = buf[offset:].view(20_011, f)
+        check(m.data_ptr() % 16 != 0, f"the F={f} view is 16-byte aligned")
+        m.copy_(torch.nn.functional.normalize(torch.randn(20_011, f, device=DEV, generator=g),
+                                              dim=1))
+        for b in (1, 2, 5, 8):
+            max_err = max(max_err, check_matvecs(torch, qs, m, torch.randn(
+                b, f, device=DEV, generator=g), f"unaligned base F={f} B={b}"))
+            n += 1
+    print(f"kernel matvecs: {n} shapes equal to the old route bit for bit, max|kernel-plain| "
+          f"{max_err:.3e} (tol {QUERY_TOL} relative), duplicate rows bit-equal, each query "
+          "alone equal to its batch", flush=True)
+
+    d = QUERY_DOCS
+    plan = matvecs_plan(qs, build)
+    times = {}
+    for f in (300, 768):
+        m = torch.nn.functional.normalize(torch.randn(d, f, device=DEV, generator=g), dim=1)
+        vec = torch.nn.functional.normalize(torch.randn(1, f, device=DEV, generator=g), dim=1)
+        max_err = max(max_err, check_matvecs(torch, qs, m, vec, f"D={d} F={f} B=1"))
+        times[f"F={f} B=1"] = time_matvecs(torch, qs, m, vec)
+        if f == 300:
+            plain_ms = cuda_ms(lambda: qs.plain_matvecs(m, vec), iters=3, warmup=1)
+        del m
+        torch.cuda.empty_cache()
+    main = times["F=300 B=1"]
+    print(f"kernel matvecs D={d} " + json.dumps(dict(
+        main_shape="F=300 B=1", plain_ms=plain_ms, times=times,
+        plan={f"F={f} B={b}": plan(d, f, b) for f in (300, 768) for b in (1, 2, 4, 8)},
+        ptxas=ptxas_report(build.build_logs.get(qs.KERNEL, ""), "matvecs_kernel"))),
+        flush=True)
+    return dict(name="matvecs", route="cuda",
+                source="anime_illust_image_searcher_tpu_torch/csrc/query_scores.cu",
+                replaces="anime_illust_image_searcher_tpu/ops/fused_query.py:357",
+                max_abs_err=max_err, ms=main["ms"], plain_ms=plain_ms,
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], old_route_ms=main["old_route_ms"],
+                share_of_bound=main["share_of_bound"])
 
 
 def phase_query_kernels(torch, qs, fq, build) -> dict:
     """The kernel against its plain version at edge shapes and at the edges of
     its ring (ragged last tiles, a base the bulk copy cannot take, 8 queries
     with one id list or disjoint lists, the largest shared memory), then
-    timings at the main path's D=1M, F=300, W=32 and of the rerank form at
-    F=300 and F=768, with the design's parameters."""
+    timings at the main path's D=1M, F=300, W=32, with the design's
+    parameters."""
     rng = np.random.default_rng(7)
     plan = query_plan(qs, build)
     combos = [(8, 8, 1, 300), (32, 64, 3, 7), (40, 256, 8, 300),
@@ -1784,19 +1926,9 @@ def phase_query_kernels(torch, qs, fq, build) -> dict:
     largest = plan(20_011, f_max, 32, 256, 8)
     held(query_case(torch, fq, 20_011, f_max, 32, 256, 8, rng),
          f"largest shared memory F={f_max} W=32 Q=256 B=8 ({largest['smem_bytes']} bytes)")
-    # the rerank product: no term slots, the same bits alone and in a batch
-    m = torch.nn.functional.normalize(torch.randn(CHECK_DOCS[-1], 300, device=DEV), dim=1)
-    vecs = torch.randn(8, 300, device=DEV)
-    batch = qs.matvecs(m, vecs)
-    err = (batch - qs.plain_matvecs(m, vecs)).abs().max().item()
-    check(err <= QUERY_TOL, f"matvecs differ from plain by {err}")
-    check(all(torch.equal(qs.matvecs(m, vecs[i:i + 1])[0], batch[i]) for i in range(8)),
-          "matvecs: a query alone and in a batch gave different bits")
-    max_err = max(max_err, err)
-    print(f"kernel query_scores: {n} shapes + matvecs against plain, max|kernel-plain| "
+    print(f"kernel query_scores: {n} shapes against plain, max|kernel-plain| "
           f"{max_err:.3e} (tol {QUERY_TOL} relative), hit counts exact, duplicate rows "
           "bit-equal, each query alone equal to its batch", flush=True)
-    del m, vecs, batch
 
     d, f, w = QUERY_DOCS, 300, 32
     g = torch.Generator(device=DEV).manual_seed(7)
@@ -1824,21 +1956,13 @@ def phase_query_kernels(torch, qs, fq, build) -> dict:
     bound_ms, bound_by = query_bound(d, f, w, 8, 1)
     rows = {f"B={b} Q={q}": dict(ms=v, bound_ms=query_bound(d, f, w, q, b)[0])
             for (b, q), v in sorted(timings.items())}
-    matvecs = {"F=300": time_matvecs(torch, qs, matrix, packed[8][0, 4 * 8:4 * 8 + f])}
     design = {f"B={b} Q={q}": plan(d, f, w, q, b) for b in (1, 8) for q in (8, 256)}
     del matrix, term, contrib
-    torch.cuda.empty_cache()
-    m768 = torch.nn.functional.normalize(torch.randn(d, 768, device=DEV, generator=g), dim=1)
-    v768 = torch.nn.functional.normalize(torch.randn(768, device=DEV, generator=g), dim=0)
-    matvecs["F=768"] = time_matvecs(torch, qs, m768, v768)
-    max_err = max(max_err, *(v["max_abs_err"] for v in matvecs.values()))
-    design.update({f"matvecs F={k}": plan(d, k, 0, 0, 1) for k in (300, 768)})
-    del m768
     torch.cuda.empty_cache()
     print(f"kernel query_scores D={d} F={f} W={w} " + json.dumps(dict(
         main_shape="B=1 Q=8", ms=ms, runs=runs, plain_ms=plain_ms, plain_B8_ms=plain8_ms,
         bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms, shapes=rows,
-        matvecs=matvecs, design=design, largest_smem=dict(F=f_max, **largest),
+        design=design, largest_smem=dict(F=f_max, **largest),
         ptxas=ptxas_report(build.build_logs.get(qs.KERNEL, "")))), flush=True)
     # the scoring form has no single PyTorch call that computes it: no library_ms
     return dict(name="query_scores", route="cuda",
@@ -2027,9 +2151,9 @@ def wall_ms(fn, iters: int) -> float:
 
 def device_profile(torch, fn) -> dict:
     """``fn`` once under torch.profiler: wall ms, device ms summed over the
-    CUDA kernels and copies, the busy share, device ms by group, the number
-    of device events and of host calls that wait for the card (a scalar
-    read, a stream or device synchronize)."""
+    CUDA kernels and copies, the busy share, device ms by group, the two K5
+    kernels' share of it, the number of device events and of host calls that
+    wait for the card (a scalar read, a stream or device synchronize)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2046,13 +2170,15 @@ def device_profile(torch, fn) -> dict:
             events += e.count
             low = e.key.lower()
             g = ("query_scores kernel" if "query_scores_kernel" in e.key
+                 else "matvecs kernel" if "matvecs_kernel" in e.key
                  else "topk/sort" if any(t in low for t in ("topk", "sort", "radix", "select"))
                  else "memcpy" if "memcpy" in low else "other elementwise/reduce")
             groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     total = sum(groups.values())
     return dict(wall_ms=wall, device_ms=total if total else "not measured",
                 busy_share=total / wall if total else "not measured",
-                kernel_share_of_device=groups.get("query_scores kernel", 0.0) / total
+                kernel_share_of_device=(groups.get("query_scores kernel", 0.0)
+                                        + groups.get("matvecs kernel", 0.0)) / total
                 if total else "not measured", groups=groups, device_events=events,
                 host_waits=syncs)
 
@@ -2109,8 +2235,8 @@ def phase_query_gates(torch, fq, qs, engine, tokens, rng) -> dict:
 class DispatchMeter:
     """Counts the fused-program dispatches (fast and exact) that the engine
     makes through ops/fused_query and, while ``timing`` is set, brackets each
-    with CUDA events. A dispatch launches the query-scores kernel twice: the
-    scores, then the rerank product."""
+    with CUDA events. A dispatch launches the query-scores kernel once (the
+    scores), then the matvecs kernel once (the rerank product)."""
 
     def __init__(self, torch, fq):
         import threading
@@ -2171,7 +2297,8 @@ def phase_query_main(torch, qs, engine, tokens, rng, meter) -> dict:
           "big-query buckets")
     for t in texts[:4]:                        # warm-up
         engine.search(t)
-    exact0, launches0, dispatches0 = engine.exact_cut_dispatches, qs.query_scores.launches, meter.count
+    exact0, dispatches0 = engine.exact_cut_dispatches, meter.count
+    launches0, mv0 = qs.query_scores.launches, qs.matvecs.launches
     meter.take_ms()
     meter.timing = True
 
@@ -2210,12 +2337,14 @@ def phase_query_main(torch, qs, engine, tokens, rng, meter) -> dict:
                                             [engine.find_similar_documents_batch(b, topn=topn)
                                              for b in batches[:2]]))
     launches = qs.query_scores.launches - launches0
+    mv_launches = qs.matvecs.launches - mv0
     dispatches = meter.count - dispatches0
     exact_cuts = engine.exact_cut_dispatches - exact0
     want = len(texts) + len(batches) + len(big) + 8 + 2 + exact_cuts
     check(dispatches == want, f"{dispatches} dispatches, expected {want}")
-    check(launches == 2 * dispatches,
-          f"query_scores launched {launches} times in phase 8, expected 2 x {dispatches} dispatches")
+    check(launches == dispatches and mv_launches == dispatches,
+          f"phase 8: query_scores launched {launches} times and matvecs {mv_launches}, "
+          f"expected one each a dispatch, {dispatches}")
     res = dict(
         single=dict(find_ms=pcts(find), assemble_ms=pcts(assemble),
                     engine_ms=pcts([a + b for a, b in zip(find, assemble)]),
@@ -2226,7 +2355,8 @@ def phase_query_main(torch, qs, engine, tokens, rng, meter) -> dict:
         q64_bucket=dict(engine_ms=big_ms[0], program_event_ms=big_ev[0]),
         q256_bucket=dict(engine_ms=big_ms[1], program_event_ms=big_ev[-1]),
         profiled_window=dict(queries="8 single + 2 batches of 8", **window),
-        exact_cut_dispatches=exact_cuts, dispatches=dispatches, launches=launches)
+        exact_cut_dispatches=exact_cuts, dispatches=dispatches, launches=launches,
+        matvecs_launches=mv_launches)
     print("query " + json.dumps(res), flush=True)
     return res
 
@@ -2322,21 +2452,22 @@ def phase_serve(torch, webui, qs, ui, tokens, rng, meter) -> dict:
     engine = ui.engine
     threads, per_thread = 16, 32
     pool = [query_text(tokens, q) for q in make_queries(rng, zipf_cdf(len(tokens)), 64)]
-    launches0, dispatches0 = qs.query_scores.launches, meter.count
+    launches0, mv0, dispatches0 = qs.query_scores.launches, qs.matvecs.launches, meter.count
     warm, wall, window = serve_requests(webui, ui, pool, threads, per_thread)
     # read before the checks below, whose engine.search calls are not served traffic
-    launches = qs.query_scores.launches - launches0
+    launches, mv_launches = qs.query_scores.launches - launches0, qs.matvecs.launches - mv0
     dispatches = meter.count - dispatches0
     n_req = len(warm) + len(window)
-    check(dispatches > 0 and launches == 2 * dispatches,
-          f"query_scores launched {launches} times in phase 9, expected 2 x {dispatches} dispatches")
+    check(dispatches > 0 and launches == dispatches and mv_launches == dispatches,
+          f"phase 9: query_scores launched {launches} times and matvecs {mv_launches}, "
+          f"expected one each a dispatch, {dispatches}")
     check_served(engine, pool, warm + window)
     lat = [row[1] for row in window]
     res = dict(docs=QUERY_DOCS, client_threads=threads, requests=len(window),
                requests_per_s=len(window) / wall, latency_ms=pcts(lat),
                server_latency_ms=pcts([row[2] for row in window]),
                requests_per_dispatch=n_req / dispatches, dispatches=dispatches,
-               launches=launches, distinct_queries=len(pool),
+               launches=launches, matvecs_launches=mv_launches, distinct_queries=len(pool),
                results_per_query=float(np.mean([row[3] for row in window])))
     print("serve " + json.dumps(res), flush=True)
     return res
@@ -2462,7 +2593,7 @@ def phase_character(torch, fq, qs, fa, caformer, rerank_ccip, artifacts, webui, 
     check(on_card.shape == (QUERY_DOCS, 768) and on_card.device.type == DEV,
           "cfeature rows not on the card")
 
-    qs.query_scores.launches = 0
+    qs.reset_launches()
     dh32_0 = fa.mha_attention.launches[32]
     cfd0, fb0 = engine.character_fused_dispatches, reranker.one_dispatch_fallbacks
     full = []
@@ -2535,15 +2666,18 @@ def phase_character(torch, fq, qs, fa, caformer, rerank_ccip, artifacts, webui, 
         caformer._character_query_matches_impl = orig_prog
         caformer.ccip_character_query_matches_batch_op = orig_batch
         reranker.predictor.rerank_diffs_from_rows = orig_full
-    launches = qs.query_scores.launches
+    launches, mv_launches = qs.query_scores.launches, qs.matvecs.launches
     dh32 = fa.mha_attention.launches[32] - dh32_0
     n_queries = engine.character_fused_dispatches - cfd0
     fallbacks = reranker.one_dispatch_fallbacks - fb0
     passes = n_queries - sum(batched) + len(batched)
-    check(launches == 2 * passes + fallbacks + len(full),
-          f"query_scores launched {launches} times in phase 13, expected 2 x {passes} "
-          f"passes ({n_queries} queries, {len(batched)} batched passes of {sum(batched)}) + "
-          f"{fallbacks} fallbacks + {len(full)} full-diffs dispatches")
+    # a pass: stage A's scores, then one 1 - cos; a fallback's live forward and
+    # a full-diffs dispatch: one more 1 - cos each
+    check(launches == passes and mv_launches == passes + fallbacks + len(full),
+          f"phase 13: query_scores launched {launches} times and matvecs {mv_launches}, "
+          f"expected {passes} passes ({n_queries} queries, {len(batched)} batched passes of "
+          f"{sum(batched)}) and passes + {fallbacks} fallbacks + {len(full)} full-diffs "
+          "dispatches")
     check(dh32 == 18 * len(stale), f"{dh32} Dh=32 launches for {len(stale)} live forwards")
     rerank_check = check_rerank_diffs(torch, qs, caformer, *probe[0])   # launches not counted
     print("character rerank vs plain " + json.dumps(rerank_check), flush=True)
@@ -2565,7 +2699,7 @@ def phase_character(torch, fq, qs, fa, caformer, rerank_ccip, artifacts, webui, 
                rerank_vs_plain=rerank_check,
                queries=n_queries, batched_passes=batched, fallbacks=fallbacks,
                full_diffs_dispatches=len(full), launches=launches,
-               live_forwards=len(stale) + 1)   # + the warm-up's
+               matvecs_launches=mv_launches, live_forwards=len(stale) + 1)   # + the warm-up's
     print("character " + json.dumps(res), flush=True)
     return res, dict(texts=texts, reranker=reranker)
 
@@ -2931,27 +3065,23 @@ def phase_ccip_onnx(torch, fa, qs, caformer, config_mod, rerank_ccip, webui, ui,
 
 
 def time_character_kernels(torch, qs, engine, texts, cf_dev) -> dict:
-    """The query-scores kernel at the character path's batch sizes (after the
-    counted run; these launches are not counted): its matvecs form on the 1M
-    cfeature rows at B = 2, 4, 8 beside torch.mm over the same B vectors and
-    the plain version, and its scoring form (stage A) at B = 8 on the chain."""
+    """The K5 kernels at the character path's batch sizes (after the counted
+    run; these launches are not counted): the matvecs kernel on the 1M
+    cfeature rows at B = 2, 4, 8, held to the old route's bits and to the
+    plain version, timed in turns with the old route (the query-scores kernel
+    with no term slots) and torch.mm over the same B vectors, beside the
+    plain version; and the scoring kernel (stage A) at B = 8 on the chain."""
     out = {}
     gen = torch.Generator(device=DEV).manual_seed(151)
-    n, f = cf_dev.shape
+    f = cf_dev.shape[1]
     for b in (2, 4, 8):
         vecs = torch.nn.functional.normalize(
             torch.randn(b, f, device=DEV, generator=gen), dim=1)
-        got = qs.matvecs(cf_dev, vecs)
-        err = (got - qs.plain_matvecs(cf_dev, vecs)).abs().max().item()
-        check(err <= QUERY_TOL, f"matvecs B={b} at F={f} differ from plain by {err}")
-        runs = [cuda_ms(lambda: qs.matvecs(cf_dev, vecs), iters=10)]
-        mm = [cuda_ms(lambda: torch.mm(cf_dev, vecs.T), iters=10) for _ in range(2)]
-        runs.append(cuda_ms(lambda: qs.matvecs(cf_dev, vecs), iters=10))
-        plain = cuda_ms(lambda: qs.plain_matvecs(cf_dev, vecs), iters=1, warmup=1)
-        out[f"matvecs B={b}"] = dict(ms=sum(runs) / 2, runs=runs, torch_mm_ms=sum(mm) / 2,
-                                     plain_ms=plain, max_abs_err=err,
-                                     bound_ms=(n * f + b * f + b * n) * 4 / PEAK_BYTES * 1e3,
-                                     bound_by="bytes")
+        err = check_matvecs(torch, qs, cf_dev, vecs, f"the cfeature rows, B={b}")
+        res = time_matvecs(torch, qs, cf_dev, vecs, iters=10)
+        res.update(plain_ms=cuda_ms(lambda: qs.plain_matvecs(cf_dev, vecs), iters=1, warmup=1),
+                   max_abs_err=err)
+        out[f"matvecs B={b}"] = res
     docs = engine._docs
     matrix, term_mat, contrib_mat = docs.matrix[0], docs.term_mat[0], docs.contrib_mat[0]
     packed = [engine._pack_fused(t) for t in texts[:8]]
@@ -3418,9 +3548,10 @@ def phase_reinfer(torch, engine_mod, qs, ui, tokens, rng, directory) -> dict:
 
     engine.model.infer_vectors = counting
     try:
-        launches0 = qs.query_scores.launches
+        launches0, mv0 = qs.query_scores.launches, qs.matvecs.launches
         default = run(engine, normal, True)
-        check(not inferred and qs.query_scores.launches - launches0 >= 2 * 2 * len(normal),
+        check(not inferred and qs.query_scores.launches - launches0 >= 2 * len(normal)
+              and qs.matvecs.launches - mv0 >= 2 * len(normal),
               f"reinfer: the default path inferred {inferred} or left the fused program")
         wide_res = run(engine, wide, False)
         check(len(inferred) == 2 * len(wide) and all(n == 10 for n in inferred),
@@ -3930,7 +4061,7 @@ def phase_dp_index(torch, qs, fq, mesh_mod, sharded_index, distributed) -> dict:
     """17d and 17e: a 1M-row, 300-d seeded unit index sharded over 1, 2 and 4
     entries of the card, then over a process group of one (NCCL); each held
     bit for bit against one unsharded ``matvecs`` + ``exact_top_k``, the
-    kernel's scores within QUERY_TOL of ``plain_matvecs``. The query-scores
+    kernel's scores within QUERY_TOL of ``plain_matvecs``. The matvecs
     kernel's count is set to 0 after the references, before the sharded
     runs."""
     rng = np.random.default_rng(17)
@@ -3975,13 +4106,14 @@ def phase_dp_index(torch, qs, fq, mesh_mod, sharded_index, distributed) -> dict:
                                    init_s=group.init_s, shards=2, top_k_ms=pcts(times))
         del idx
     torch.cuda.empty_cache()
-    by_form = dict(qs.query_scores.launches_by_form)
+    by_form = dict(qs.matvecs.launches_by_form)
     # a mesh's top-k or scores call launches once a shard: 2 warm-up queries
     # and 16 timed, each with one scores call, then 16 + 1 over the group
     want = (2 + 1 + len(queries) + 1) * sum(DP_SHARDS) + (len(queries) + 1) * 2
-    check(by_form == ({"matvecs B=1": want} if DEV == "cuda" else {}),
-          f"17d/e: query-scores launches {by_form}, expected {want} of matvecs B=1")
-    res["query_scores_launches"] = by_form
+    check(by_form == ({"B=1": want} if DEV == "cuda" else {}) and qs.query_scores.launches == 0,
+          f"17d/e: matvecs launches {by_form} (query_scores {qs.query_scores.launches}), "
+          f"expected {want} at B=1 and none of query_scores")
+    res["matvecs_launches"] = by_form
     return res
 
 
@@ -4071,10 +4203,11 @@ def check_sharded(label: str, got: dict, want: dict) -> None:
 
 
 def counted_sharded_run(torch, qs, meter, engine, work, topn, n, label) -> tuple:
-    """``sharded_run`` with the query-scores count set to 0 just before and
-    read just after: 2 launches a shard for each normal dispatch, 2 a shard
-    for each one-dispatch character pass, 1 for each full-diffs dispatch
-    (the predictor's unsharded index), and no fallback."""
+    """``sharded_run`` with both K5 counts set to 0 just before and read just
+    after: a shard's query-scores launch and matvecs launch for each normal
+    dispatch and for each one-dispatch character pass, one more matvecs launch
+    for each full-diffs dispatch (the predictor's unsharded index), and no
+    fallback."""
     reranker = engine.cfeature_reranker
     full, orig_full = [], reranker.predictor.rerank_diffs_from_rows
     reranker.predictor.rerank_diffs_from_rows = \
@@ -4088,6 +4221,7 @@ def counted_sharded_run(torch, qs, meter, engine, work, topn, n, label) -> tuple
         del reranker.predictor.rerank_diffs_from_rows
     torch.cuda.synchronize()
     launches = dict(qs.query_scores.launches_by_form)
+    mv_launches = dict(qs.matvecs.launches_by_form)
     dispatches = meter.count - d0
     char_queries = engine.character_one_dispatch_queries - c0
     fallbacks = reranker.one_dispatch_fallbacks - fb0
@@ -4095,12 +4229,13 @@ def counted_sharded_run(torch, qs, meter, engine, work, topn, n, label) -> tuple
     passes = len(chars) + sum(-(-len(b) // 8) for b in bursts)
     check(char_queries == len(chars) + sum(map(len, bursts)) and fallbacks == 0,
           f"18{label}: {char_queries} one-dispatch character queries, {fallbacks} fallbacks")
-    want = 2 * n * (dispatches + passes) + len(full)
-    check(sum(launches.values()) == want,
-          f"18{label}: query-scores launched {launches}, expected 2 x {n} shards x "
-          f"({dispatches} dispatches + {passes} character passes) + {len(full)} full diffs")
-    return ans, ms, dict(launches=launches, dispatches=dispatches, character_passes=passes,
-                         full_diffs_dispatches=len(full))
+    want = n * (dispatches + passes)
+    check(sum(launches.values()) == want and sum(mv_launches.values()) == want + len(full),
+          f"18{label}: query-scores launched {launches} and matvecs {mv_launches}, expected "
+          f"{n} shards x ({dispatches} dispatches + {passes} character passes) each, + "
+          f"{len(full)} full diffs of matvecs")
+    return ans, ms, dict(launches=launches, matvecs_launches=mv_launches, dispatches=dispatches,
+                         character_passes=passes, full_diffs_dispatches=len(full))
 
 
 def phase_sharded_engine(torch, qs, fq, webui, engine_mod, rerank_ccip, ui, char_ctx,
@@ -4138,7 +4273,7 @@ def phase_sharded_engine(torch, qs, fq, webui, engine_mod, rerank_ccip, ui, char
         unsharded=dict(engine_ms=pcts(ref_ms["single"]), batch8_ms=pcts(ref_ms["batch"]),
                        character_ms=pcts(ref_ms["char"]),
                        profiled_window=dict(queries="8 single", **ref_window)))
-    total_launches = 0
+    total_launches = total_mv = 0
     with DispatchMeter(torch, fq) as meter:
         for n in SHARD_COUNTS:
             t0 = time.perf_counter()
@@ -4156,14 +4291,16 @@ def phase_sharded_engine(torch, qs, fq, webui, engine_mod, rerank_ccip, ui, char
                                                   f" {n} shards")
             check_sharded(f" {n} shards", got, want)
             profiled = device_profile(torch, lambda: [engine.search(t) for t in singles[:8]])
-            d0, l0 = meter.count, qs.query_scores.launches
+            d0, l0, m0 = meter.count, qs.query_scores.launches, qs.matvecs.launches
             warm, wall, window = serve_requests(webui, srv, served, 8, 7)
             # read before check_served, whose engine.search calls are not served
             served_launches, served_dispatches = qs.query_scores.launches - l0, meter.count - d0
-            check(served_launches == 2 * n * served_dispatches and served_dispatches > 0,
-                  f"18 {n} shards: {served_launches} query-scores launches for "
-                  f"{served_dispatches} served dispatches")
+            served_mv = qs.matvecs.launches - m0
+            check(served_launches == served_mv == n * served_dispatches and served_dispatches > 0,
+                  f"18 {n} shards: {served_launches} query-scores and {served_mv} matvecs "
+                  f"launches for {served_dispatches} served dispatches")
             total_launches += qs.query_scores.launches
+            total_mv += qs.matvecs.launches
             check_served(engine, served, warm + window)
             res[f"shards_{n}"] = dict(
                 engine_ms=pcts(ms["single"]), batch8_ms=pcts(ms["batch"]),
@@ -4172,7 +4309,8 @@ def phase_sharded_engine(torch, qs, fq, webui, engine_mod, rerank_ccip, ui, char
                 serve=dict(requests=len(warm) + len(window),
                            requests_per_s=len(window) / wall,
                            latency_ms=pcts([row[1] for row in window]),
-                           dispatches=served_dispatches, launches=served_launches), **counts)
+                           dispatches=served_dispatches, launches=served_launches,
+                           matvecs_launches=served_mv), **counts)
             del srv, engine, got
             torch.cuda.empty_cache()
 
@@ -4187,13 +4325,14 @@ def phase_sharded_engine(torch, qs, fq, webui, engine_mod, rerank_ccip, ui, char
                                                   2, " NCCL")
             check_sharded(" NCCL", got, want)
             total_launches += sum(counts["launches"].values())
+            total_mv += sum(counts["matvecs_launches"].values())
             res["group_of_one"] = dict(backend=group.backend, shards=2,
                                        engine_ms=pcts(ms["single"]),
                                        batch8_ms=pcts(ms["batch"]),
                                        character_ms=pcts(ms["char"]), **counts)
             del engine, got
     torch.cuda.empty_cache()
-    res["launches"] = total_launches
+    res["launches"], res["matvecs_launches"] = total_launches, total_mv
     res["seconds"] = time.perf_counter() - t_phase
     print("sharded engine " + json.dumps(res), flush=True)
     return res
@@ -4239,7 +4378,7 @@ def counted(name, fn):
         torch.cuda.synchronize()
     out[name] = dict(seconds=time.perf_counter() - t, attention=fa.mha_attention.launches,
                      attention_f32=fa.mha_attention.launches_f32,
-                     query_scores=qs.query_scores.launches)
+                     query_scores=qs.query_scores.launches, matvecs=qs.matvecs.launches)
 
 
 def cli(cwd, argv):
@@ -4397,10 +4536,13 @@ def phase_packaging(torch, _build, fa, qs, caformer, config_mod, engine_mod, gen
               f"phase 20: the archive built {n} as {lib}, the tree as {_build._paths(n)[1]}")
     launches = dict(tagging_dh64=arc["tagging"]["attention"]["64"],
                     gen_cfeatures_dh32=arc["gen_cfeatures"]["attention"]["32"],
-                    webui_query_scores=arc["webui"]["query_scores"])
+                    webui_query_scores=arc["webui"]["query_scores"],
+                    webui_matvecs=arc["webui"]["matvecs"])
     check(all(v > 0 for v in launches.values()), f"phase 20: launches from the archive {launches}")
-    check(launches["tagging_dh64"] == 24 * 2 and launches["gen_cfeatures_dh32"] == 18,
-          f"phase 20: launches from the archive {launches}, expected 48 and 18")
+    check(launches["tagging_dh64"] == 24 * 2 and launches["gen_cfeatures_dh32"] == 18
+          and launches["webui_query_scores"] == launches["webui_matvecs"],
+          f"phase 20: launches from the archive {launches}, expected 48, 18 and one "
+          "query-scores and one matvecs launch a dispatch")
     # (d) the first-use build and each CLI's wall time, archive and tree
     step_names = ("tagging", "gen_cfeatures", "webui")
     res = dict(card=smi, archive_build_s=archive_s,
@@ -4538,19 +4680,22 @@ def main() -> None:
                                       ingest, native_ingest, fa)
     kernels[0]["launches"] += e2e_res["attention_launches"][64]
 
-    # 7. the query kernel against its plain version, and its times
+    # 7. the query kernel and the matvecs kernel against their plain
+    # versions (matvecs also against the query kernel's bits), and their times
     kernels.append(phase_query_kernels(torch, qs, fq, _build))
+    kernels.append(phase_matvecs(torch, qs, _build))
 
     # 8 + 9. the engine and the web server over a 1M-doc artifact chain, with
-    # the launch count set to 0 before the served traffic and read after it
+    # both K5 counts set to 0 before the served traffic and read after it
     with tempfile.TemporaryDirectory() as tmp:
         ui, tokens, rng = phase_chain(torch, webui, config_mod, dictionary, bm25_index, tmp)
         programs = phase_query_gates(torch, fq, qs, ui.engine, tokens, rng)
         with DispatchMeter(torch, fq) as meter:
-            qs.query_scores.launches = 0
+            qs.reset_launches()
             query_res = phase_query_main(torch, qs, ui.engine, tokens, rng, meter)
             serve_res = phase_serve(torch, webui, qs, ui, tokens, rng, meter)
         query_launches = query_res["launches"] + serve_res["launches"]
+        mv_launches = query_res["matvecs_launches"] + serve_res["matvecs_launches"]
 
         # 10-12. the CCIP encoder: card against CPU, then its main path (the
         # predictor, the CLI) with the Dh=32 count set to 0 just before it
@@ -4580,7 +4725,8 @@ def main() -> None:
               f"phases 11-13, expected 18 x {forwards32} CAFormer forwards at Dh=32")
         kernels[1]["launches"] = dh32
         kernels[2]["launches"] = query_launches + char_res["launches"]
-        kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
+        kernels[3]["launches"] = mv_launches + char_res["matvecs_launches"]
+        kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"],
                                         char_res["rerank_vs_plain"]["max_abs_err"])
 
         # 17. --data-parallel: the predictors over meshes, both CLIs, the
@@ -4590,7 +4736,7 @@ def main() -> None:
                                      tmp, smi)
         kernels[0]["launches"] += dp_res["attention_launches"][64]
         kernels[1]["launches"] += dp_res["attention_launches"][32]
-        kernels[2]["launches"] += sum(dp_res["index"]["query_scores_launches"].values())
+        kernels[3]["launches"] += sum(dp_res["index"]["matvecs_launches"].values())
 
         # 18. the sharded engine: normal and character queries over row shards
         # of the chain and of phase 13's cfeatures, and WebUIServer(mesh=)
@@ -4598,24 +4744,31 @@ def main() -> None:
         p18 = phase_sharded_engine(torch, qs, fq, webui, engine_mod, rerank_ccip, ui,
                                    char_ctx, tokens, rng, tmp, smi)
         kernels[2]["launches"] += p18["launches"]
+        kernels[3]["launches"] += p18["matvecs_launches"]
 
         # 15. CCIP from the published files' layout: convert, the learned
-        # metric, the batched character program (both counts set to 0 here)
+        # metric, the batched character program (all counts set to 0 here)
         fa.reset_launches()
         qs.reset_launches()
         convert_res, metric_res, batch_res, forwards15 = phase_ccip_onnx(
             torch, fa, qs, caformer, config_mod, rerank_ccip, webui, ui, char_ctx, gen_ctx, tmp)
         by_form = dict(qs.query_scores.launches_by_form)
+        mv_by_form = dict(qs.matvecs.launches_by_form)
         check(fa.mha_attention.launches == {64: 0, 32: 18 * forwards15}
               and fa.mha_attention.launches_f32 == {64: 0, 32: 0},
               f"flash_attention launched {fa.mha_attention.launches} times in phase 15, "
               f"expected 18 x {forwards15} CAFormer forwards at Dh=32")
-        for form in ("scores", "matvecs"):
-            check(any(by_form.get(f"{form} B={b}", 0) for b in range(2, 9)),
-                  f"phase 15 launched no batched {form} form: {by_form}")
+        check(any(by_form.get(f"scores B={b}", 0) for b in range(2, 9))
+              and any(mv_by_form.get(f"B={b}", 0) for b in range(2, 9)),
+              f"phase 15 launched no batched form of a kernel: query_scores {by_form}, "
+              f"matvecs {mv_by_form}")
+        check(not any(k.startswith("matvecs") for k in by_form),
+              f"phase 15 took the old matvecs route through query_scores: {by_form}")
         kernels[1]["launches"] += fa.mha_attention.launches[32]
         kernels[2]["launches"] += qs.query_scores.launches
+        kernels[3]["launches"] += qs.matvecs.launches
         batch_res["query_scores_launches"] = by_form
+        batch_res["matvecs_launches"] = mv_by_form
         batch_res["kernel_times"] = time_character_kernels(
             torch, qs, ui.engine, char_ctx["texts"], char_ctx["reranker"].cfeatures_idx.device_matrix())
         batch_res["single_query_p50_phase13_find_ms"] = char_res["single"]["find_ms"]["p50"]
@@ -4644,9 +4797,11 @@ def main() -> None:
         kernels[0]["launches"] += pack_res["launches"]["tagging_dh64"]
         kernels[1]["launches"] += pack_res["launches"]["gen_cfeatures_dh32"]
         kernels[2]["launches"] += pack_res["launches"]["webui_query_scores"]
+        kernels[3]["launches"] += pack_res["launches"]["webui_matvecs"]
     torch.cuda.empty_cache()
 
     one = query_res["single"]
+    mv = kernels[3]
     print(f"summary: {main_res['img_s']:.2f} img/s end to end at B={main_res['batch']} "
           f"(MFU {100 * main_res['mfu']:.2f}%), forward alone {main_res['forward_img_s']:.2f} "
           f"img/s (MFU {100 * main_res['forward_mfu']:.2f}% of 989 TFLOP/s bf16); 1M-doc "
@@ -4655,7 +4810,9 @@ def main() -> None:
           f"{one['program_event_ms']['p50']:.3f} ms), a batch of 8 "
           f"{query_res['batch8']['engine_ms_per_query']:.3f} ms a query; exact program "
           f"{programs['B=1']['exact_wall_ms']:.3f} vs fast {programs['B=1']['fast_wall_ms']:.3f} "
-          f"ms at B=1; serve {serve_res['requests_per_s']:.1f} requests/s, p50 "
+          f"ms at B=1; matvecs kernel {mv['ms']:.4f} ms at F=300 B=1 (old route "
+          f"{mv['old_route_ms']:.4f}, torch.mv {mv['library_ms']:.4f}, bound "
+          f"{mv['bound_ms']:.4f}); serve {serve_res['requests_per_s']:.1f} requests/s, p50 "
           f"{serve_res['latency_ms']['p50']:.1f} ms over {serve_res['requests']}; CCIP "
           f"CAFormer-24 {ccip_res['img_s']:.1f} img/s end to end at B={ccip_res['batch']}, "
           f"forward alone {ccip_res['forward_img_s']:.1f} img/s (MFU "
@@ -4710,7 +4867,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the f32 entries also carry their pass count, the FFMA bound and both shares
-    extra = ("passes", "share_of_bound", "ffma_bound_ms", "share_of_ffma_bound")
+    # and matvecs the old route's time beside its own
+    extra = ("passes", "share_of_bound", "ffma_bound_ms", "share_of_ffma_bound", "old_route_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in keys or k in kern}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

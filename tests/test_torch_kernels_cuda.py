@@ -531,13 +531,93 @@ def test_matvecs_kernel_matches_plain_for_any_batch(cuda, d, f):
     g = torch.Generator(device=cuda).manual_seed(d)
     matrix = torch.nn.functional.normalize(torch.randn(d, f, generator=g, device=cuda), dim=1)
     vecs = torch.randn(8, f, generator=g, device=cuda)
-    before = qs.query_scores.launches
+    before, scoring = qs.matvecs.launches, qs.query_scores.launches
     batch = qs.matvecs(matrix, vecs)
     torch.cuda.synchronize()
-    assert qs.query_scores.launches == before + 1
+    assert qs.matvecs.launches == before + 1 and qs.query_scores.launches == scoring
     assert torch.allclose(batch, qs.plain_matvecs(matrix, vecs), rtol=1e-5, atol=1e-6)
     for b in range(8):
         assert torch.equal(qs.matvecs(matrix, vecs[b:b + 1])[0], batch[b])
+
+
+def _old_route(qs, matrix, vecs):
+    """The sims of the scoring kernel with no term slots: the route the
+    matvecs kernel replaced, whose bits it keeps."""
+    d, b = matrix.shape[0], vecs.shape[0]
+    packed = torch.cat([vecs, vecs.new_zeros((b, 1))], dim=1)
+    empty = matrix.new_empty((d, 0))
+    return qs.query_scores(matrix, empty.to(torch.int32), empty, packed)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 33, 100_003])
+@pytest.mark.parametrize("f", [1, 7, 300, 768, 1024, 2048])
+def test_matvecs_kernel_gives_the_old_routes_bits(cuda, d, f):
+    """For every B in 1..8 the matvecs kernel equals the scoring kernel with
+    no term slots bit for bit, one launch of its own a call (float4 rows
+    where F % 4 == 0, scalar rows else; ragged last groups at any D; past 48
+    KB of query vectors in shared memory at F=2048, B > 6)."""
+    from anime_illust_image_searcher_tpu_torch.ops import query_scores as qs
+
+    g = torch.Generator(device=cuda).manual_seed(f * 7 + d)
+    matrix = torch.nn.functional.normalize(torch.randn(d, f, generator=g, device=cuda), dim=1)
+    vecs = torch.randn(8, f, generator=g, device=cuda)
+    for b in range(1, 9):
+        want = _old_route(qs, matrix, vecs[:b])
+        before = dict(qs.matvecs.launches_by_form)
+        got = qs.matvecs(matrix, vecs[:b])
+        torch.cuda.synchronize()
+        assert qs.matvecs.launches_by_form == {**before, f"B={b}": before.get(f"B={b}", 0) + 1}
+        assert got.shape == (b, d) and torch.equal(got, want), (b, d, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,offset", [(7, 7), (300, 1), (768, 1), (768, 2)])
+def test_matvecs_kernel_at_an_unaligned_base(cuda, f, offset):
+    """A matrix whose base is not 16-byte aligned (rows 1.. of an F=7
+    matrix, or an F % 4 == 0 matrix ``offset`` floats into its buffer) takes
+    the scalar rows and still gives the old route's bits."""
+    from anime_illust_image_searcher_tpu_torch.ops import query_scores as qs
+
+    d = 20_011
+    g = torch.Generator(device=cuda).manual_seed(f + offset)
+    buf = torch.empty(d * f + offset, device=cuda)
+    matrix = buf[offset:].view(d, f)
+    assert matrix.data_ptr() % 16 != 0
+    matrix.copy_(torch.nn.functional.normalize(torch.randn(d, f, generator=g, device=cuda),
+                                               dim=1))
+    vecs = torch.randn(8, f, generator=g, device=cuda)
+    for b in (1, 2, 3, 8):
+        got = qs.matvecs(matrix, vecs[:b])
+        assert torch.equal(got, _old_route(qs, matrix, vecs[:b])), b
+        assert torch.allclose(got, qs.plain_matvecs(matrix, vecs[:b]), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_matvecs_kernel_duplicate_rows_tie(cuda, b):
+    """Duplicate rows score identical bits wherever they sit in the kernel's
+    row groups (the elbow cut relies on it)."""
+    from anime_illust_image_searcher_tpu_torch.ops import query_scores as qs
+
+    d, f = 50_021, 300
+    g = torch.Generator(device=cuda).manual_seed(b)
+    matrix = torch.randn(d, f, generator=g, device=cuda)
+    dup = torch.arange(0, d - 1, 7, device=cuda)
+    matrix[dup + 1] = matrix[dup]
+    matrix[-1] = matrix[0]                 # the first group's and the last, ragged one's
+    out = qs.matvecs(matrix, torch.randn(b, f, generator=g, device=cuda))
+    assert torch.equal(out[:, dup], out[:, dup + 1]) and torch.equal(out[:, 0], out[:, -1])
+
+
+@pytest.mark.cuda
+def test_matvecs_refuses_nine_vectors(cuda):
+    from anime_illust_image_searcher_tpu_torch.ops import query_scores as qs
+
+    before = qs.matvecs.launches
+    with pytest.raises(ValueError, match="1..8"):
+        qs.matvecs(torch.zeros(64, 300, device=cuda), torch.zeros(9, 300, device=cuda))
+    assert qs.matvecs.launches == before
 
 
 @pytest.mark.cuda
@@ -614,9 +694,11 @@ def test_query_scores_past_2_31_matrix_elements(cuda):
                                          packed[:b].contiguous())
         for g_, w_ in zip(got, want):
             assert torch.allclose(g_[:, rows].float(), w_.float(), rtol=1e-5, atol=1e-5)
-    sims = qs.matvecs(matrix, packed[:2, 32:32 + f].contiguous())
-    assert torch.allclose(sims[:, rows], qs.plain_matvecs(matrix[rows], packed[:2, 32:32 + f]),
+    vecs = packed[:2, 32:32 + f].contiguous()
+    sims = qs.matvecs(matrix, vecs)
+    assert torch.allclose(sims[:, rows], qs.plain_matvecs(matrix[rows], vecs),
                           rtol=1e-5, atol=1e-5)
+    assert torch.equal(sims, _old_route(qs, matrix, vecs))
 
 
 # ------------------------------------------------------------- int8 (K11)

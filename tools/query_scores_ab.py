@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""This checkout's query-scores kernel against another revision's, on one
+"""This checkout's query-scores kernels against another revision's, on one
 NVIDIA card: bit identity and time.
 
     python3 tools/query_scores_ab.py --other PATH/TO/other/query_scores.cu
 
 Builds both sources with the same nvcc flags (ops/_build.py), puts the same
 inputs through both at chip_smoke.py's phase 7 shapes (D=1M, F=300, W=32;
-B=1/8 x Q=8/64/256, the queries' ids weighted, required and excluded) and
-through the rerank form (no term slots: B=1 and 8 at F=300, B=1 at F=768),
-checks that each of the four outputs is torch.equal between the two (or
-prints the first difference), and times them in turns (other, this, this,
-other), each the mean of 20 launches. Prints the card's name and power limit,
-one ``ab {json}`` line a shape and an ``ab summary {json}`` line; exits 1 if
-any output differs. Imports the port only (torch, numpy), never JAX.
+B=1/8 x Q=8/64/256, the queries' ids weighted, required and excluded) through
+each side's ``aiis_query_scores``, and the rerank and 1 - cos products (no
+term slots: F=300 and F=768 at B=1 and 8) through this checkout's
+``aiis_matvecs`` and the other side's ``aiis_matvecs``, or, where the other
+revision has none, its ``aiis_query_scores`` with W = Q = 0 (the route
+aiis_matvecs replaced).
+Checks that each output is torch.equal between the two (or prints the first
+difference), and times them in turns (other, this, this, other), each the
+mean of 20 launches. Prints the card's name and power limit, one ``ab {json}``
+line a shape and an ``ab summary {json}`` line; exits 1 if any output
+differs. Imports the port only (torch, numpy), never JAX.
 """
 
 from __future__ import annotations
@@ -41,6 +45,17 @@ def run(torch, fn, matrix, term, contrib, packed):
     if err:
         raise RuntimeError(f"query_scores launch failed: CUDA error {err}")
     return outs
+
+
+def run_matvecs(torch, fn, matrix, vecs):
+    """One launch through a bound ``aiis_matvecs``: the (B, D) sims."""
+    d, f = matrix.shape
+    out = torch.empty((vecs.shape[0], d), dtype=torch.float32, device=matrix.device)
+    err = fn(matrix.data_ptr(), vecs.data_ptr(), d, f, vecs.shape[0], out.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"matvecs launch failed: CUDA error {err}")
+    return [out]
 
 
 def cuda_ms(torch, fn, iters: int = 20) -> float:
@@ -83,8 +98,11 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    this = qs._bind(_build.load(qs.KERNEL))
-    other = qs._bind(_build.load_other(os.path.abspath(args.other), qs.KERNEL))
+    this_lib = _build.load(qs.KERNEL)
+    this, this_mv = qs._bind(this_lib), qs._bind_matvecs(this_lib)
+    other_lib = _build.load_other(os.path.abspath(args.other), qs.KERNEL)
+    other = qs._bind(other_lib)
+    other_mv = qs._bind_matvecs(other_lib) if hasattr(other_lib, "aiis_matvecs") else None
 
     d, f, w = args.docs, 300, 32
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -104,38 +122,44 @@ def main() -> None:
         for b in (1, 8):
             cases.append((f"B={b} Q={q}", (matrix, term, contrib, packed[:b].contiguous())))
 
-    def rerank(m, b):
-        vecs = torch.nn.functional.normalize(
-            torch.randn(b, m.shape[1], device="cuda", generator=g), dim=1)
-        empty = m.new_empty((m.shape[0], 0))
-        return (m, empty.to(torch.int32), empty, torch.cat([vecs, vecs.new_zeros((b, 1))], 1))
-
-    cases += [("matvecs F=300 B=1", rerank(matrix, 1)), ("matvecs F=300 B=8", rerank(matrix, 8))]
     results, same = {}, True
 
-    def measure(label, case):
+    def measure(label, run_other, run_this):
         nonlocal same
-        a, b = run(torch, other, *case), run(torch, this, *case)
+        a, b = run_other(), run_this()
         diffs = {n: first_difference(torch, x, y)
                  for n, x, y in zip(("sims", "bm25", "excl_hits", "req_hits"), a, b)}
         same = same and all(v is None for v in diffs.values())
-        t = [cuda_ms(torch, lambda: run(torch, other, *case)),
-             cuda_ms(torch, lambda: run(torch, this, *case)),
-             cuda_ms(torch, lambda: run(torch, this, *case)),
-             cuda_ms(torch, lambda: run(torch, other, *case))]
+        t = [cuda_ms(torch, run_other), cuda_ms(torch, run_this),
+             cuda_ms(torch, run_this), cuda_ms(torch, run_other)]
         res = dict(equal=all(v is None for v in diffs.values()), first_difference=diffs,
                    other_ms=(t[0] + t[3]) / 2, this_ms=(t[1] + t[2]) / 2, turns_ms=t)
         results[label] = res
         print(f"ab {label} " + json.dumps(res), flush=True)
 
+    def products(m):
+        """This side's aiis_matvecs against the other's (or its W = Q = 0 route)."""
+        for b in (1, 8):
+            vecs = torch.nn.functional.normalize(
+                torch.randn(b, m.shape[1], device="cuda", generator=g), dim=1)
+            empty = m.new_empty((m.shape[0], 0))
+            old = (m, empty.to(torch.int32), empty,
+                   torch.cat([vecs, vecs.new_zeros((b, 1))], 1))
+            measure(f"matvecs F={m.shape[1]} B={b}",
+                    (lambda: run_matvecs(torch, other_mv, m, vecs)) if other_mv
+                    else (lambda: run(torch, other, *old)[:1]),
+                    lambda: run_matvecs(torch, this_mv, m, vecs))
+
     for label, case in cases:
-        measure(label, case)
+        measure(label, lambda: run(torch, other, *case), lambda: run(torch, this, *case))
+    products(matrix)
     del cases, matrix, term, contrib
     torch.cuda.empty_cache()
-    m768 = torch.nn.functional.normalize(torch.randn(d, 768, device="cuda", generator=g), dim=1)
-    measure("matvecs F=768 B=1", rerank(m768, 1))
+    products(torch.nn.functional.normalize(torch.randn(d, 768, device="cuda", generator=g),
+                                           dim=1))
     print("ab summary " + json.dumps(dict(
         card=smi, docs=d, all_equal=same,
+        other_products="aiis_matvecs" if other_mv else "aiis_query_scores W=Q=0",
         this_over_other={k: v["this_ms"] / v["other_ms"] for k, v in results.items()})),
         flush=True)
     sys.exit(0 if same else 1)
