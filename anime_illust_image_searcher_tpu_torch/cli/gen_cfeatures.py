@@ -4,8 +4,8 @@ Port of the JAX package's cli/gen_cfeatures.py (public surface of the
 reference's gen_cfeatures.py:461-483):
 
     python -m anime_illust_image_searcher_tpu_torch.cli.gen_cfeatures --dir D
-        [--after YYYY-MM-DD] [--batch-size N] [--model-dir M] [--decode-workers N]
-        [--profile DIR] [--data-parallel]
+        [--after YYYY-MM-DD] [--batch-size N] [--model-dir M | --model-repo REPO_ID]
+        [--decode-workers N] [--profile DIR] [--data-parallel]
 
 Behavior (gen_cfeatures.py:337-459), as in the JAX package:
   - recursive listing + optional ctime --after filter
@@ -22,10 +22,13 @@ The files are the JAX package's, byte for byte, so either package reads the
 other's index. ``--model-dir`` takes a directory written by either package's
 converter (``python -m anime_illust_image_searcher_tpu_torch.cli.convert_ccip``
 from the published ONNX files), a learned ``model_metrics.onnx`` included.
-``--profile DIR`` writes a torch.profiler Chrome trace of the run into DIR;
-``--data-parallel`` shards each feature batch over this process's cards (the
-batch rounded up to a multiple of their count; one run a host, with no process
-group); ``--model-repo`` is not carried (it needs the network).
+``--model-repo`` downloads the published ONNX files from the HuggingFace Hub and
+converts them into the model cache that the JAX package shares (models/hub.py,
+``$AIIS_MODEL_CACHE``) on first use; ``--model-dir`` wins over it, and a
+failed fetch raises. ``--profile DIR`` writes a torch.profiler Chrome trace of
+the run into DIR; ``--data-parallel`` shards each feature batch over this
+process's cards (the batch rounded up to a multiple of their count; one run a
+host, with no process group).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from ..device import DeviceLike
 from ..index import artifacts
 from ..index.similarity import SimilarityIndex
 from ..models.ccip import CCIPPredictor
+from ..models.hub import fetch_ccip_repo
 from ..parallel.mesh import DATA_AXIS, data_parallel_batch, local_mesh
 from ..utils.profiling import trace
 from ..utils.progress import ProgressMeter
@@ -145,6 +149,9 @@ def main(arg_str: list, device: DeviceLike = None) -> None:
                         help="CCIP checkpoint dir (params.npz + config.json, and "
                              "model_metrics.onnx for a learned metric: cli.convert_ccip "
                              "writes it); defaults to $AIIS_CCIP_MODEL_DIR, else random weights")
+    parser.add_argument("--model-repo", default=None, metavar="REPO_ID",
+                        help="HF Hub repo to download + convert at runtime "
+                             "(e.g. deepghs/ccip_onnx); networked deployments only")
     parser.add_argument("--data-parallel", action="store_true",
                         help="shard feature batches across all visible cards")
     parser.add_argument("--profile", default=None, metavar="DIR",
@@ -179,9 +186,19 @@ def main(arg_str: list, device: DeviceLike = None) -> None:
             print("Invalid date format. format is YYYY-MM-DD")
             sys.exit(1)
 
-    predictor = Predictor(config=cfg, model_dir=args.model_dir, device=device, mesh=mesh)
+    model_dir = args.model_dir
+    if model_dir is None and args.model_repo:
+        model_dir = fetch_ccip_repo(args.model_repo)
+        print(f"ccip model converted to {model_dir}")
+
+    predictor = Predictor(config=cfg, model_dir=model_dir, device=device, mesh=mesh)
     with trace(args.profile):
         predictor.process_directory(args.dir[0], after_date)
+
+
+def _console() -> None:
+    """pip console-script entry (pyproject [project.scripts])."""
+    main(sys.argv[1:])
 
 
 if __name__ == "__main__":

@@ -291,5 +291,10 @@ def _build(args, cfg: Doc2VecConfig, processed_docs, device: DeviceLike,
         pass
 
 
+def _console() -> None:
+    """pip console-script entry (pyproject [project.scripts])."""
+    main(sys.argv[1:])
+
+
 if __name__ == "__main__":
     main(sys.argv[1:])

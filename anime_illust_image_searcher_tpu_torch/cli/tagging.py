@@ -3,8 +3,13 @@
 Port of the JAX package's cli/tagging.py:
 
     python -m anime_illust_image_searcher_tpu_torch.cli.tagging --dir D [--after YYYY-MM-DD]
-        [--model-dir M] [--batch-size N] [--decode-workers N] [--scaled-decode]
-        [--profile DIR] [--data-parallel]
+        [--model-dir M | --model-repo REPO_ID] [--batch-size N] [--decode-workers N]
+        [--scaled-decode] [--profile DIR] [--data-parallel]
+
+``--model-repo`` fetches the checkpoint from the HuggingFace Hub into the model
+cache that the JAX package shares (models/hub.py, ``$AIIS_MODEL_CACHE``) on
+first use; ``--model-dir`` wins over it, and it wins over ``$AIIS_MODEL_DIR``.
+A failed fetch raises: it never falls back to seeded weights.
 
 Host decode runs through the native C++ pool (data/native_ingest.py) when it
 builds, else through Pillow, with the same bytes; ``AIIS_DECODE_PROC=<n>`` moves
@@ -40,6 +45,7 @@ from ..config import TaggerConfig
 from ..data.ingest import PrefetchLoader, filter_files_by_date, list_files_recursive
 from ..device import DeviceLike
 from ..index import artifacts
+from ..models.hub import fetch_tagger_repo
 from ..models.tagger import TaggerPredictor
 from ..parallel.mesh import DATA_AXIS, data_parallel_batch, local_mesh
 from ..utils.profiling import trace
@@ -119,6 +125,11 @@ def main(arg_str: list, device: DeviceLike = None) -> None:
              "(from SmilingWolf/wd-eva02-large-tagger-v3); "
              "defaults to $AIIS_MODEL_DIR, else random weights",
     )
+    parser.add_argument(
+        "--model-repo", default=None, metavar="REPO_ID",
+        help="HF Hub repo to download at runtime (e.g. "
+             "SmilingWolf/wd-eva02-large-tagger-v3); networked deployments only",
+    )
     parser.add_argument("--batch-size", type=int, default=None, help="device batch size")
     parser.add_argument("--decode-workers", type=int, default=None,
                         help="host decode threads (default 8, clamped to the core count)")
@@ -159,9 +170,19 @@ def main(arg_str: list, device: DeviceLike = None) -> None:
             print("Invalid date format. format is YYYY-MM-DD")
             sys.exit(1)
 
-    predictor = Predictor(config=cfg, model_dir=args.model_dir, device=device, mesh=mesh)
+    model_dir = args.model_dir
+    if model_dir is None and args.model_repo:
+        model_dir = fetch_tagger_repo(args.model_repo)
+        print(f"model fetched to {model_dir}")
+
+    predictor = Predictor(config=cfg, model_dir=model_dir, device=device, mesh=mesh)
     with trace(args.profile):
         predictor.process_directory(args.dir[0], after_date)
+
+
+def _console() -> None:
+    """pip console-script entry (pyproject [project.scripts])."""
+    main(sys.argv[1:])
 
 
 if __name__ == "__main__":

@@ -376,5 +376,10 @@ def main(arg_str: Optional[List[str]] = None, device: DeviceLike = None) -> None
         httpd.server_close()
 
 
+def _console() -> None:
+    """pip console-script entry (pyproject [project.scripts])."""
+    main(sys.argv[1:])
+
+
 if __name__ == "__main__":
     main()

@@ -76,7 +76,9 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                that are not 16-byte aligned, within QUERY_TOL of the plain
                version, each query alone equal to its batch; timed at D=1M,
                B=1, F=300 and F=768 in turns with the old route and
-               ``torch.mv``; its launch plan and ptxas registers;
+               ``torch.mv``, and at F=300, B=8 with the old route and
+               ``torch.mm`` (beside the plain version); its launch plan and
+               ptxas registers;
   8. query main — a 1M-doc artifact chain (300-d rows, Zipf-like 10k-tag
                vocabulary, 10-30 tags a doc, 500 long docs spilling into the
                COO overflow) written in the loaders' formats with its BM25
@@ -238,6 +240,29 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                and 10b's tolerances, and tools/quant_report_torch.py --batch 32
                at full width (`packaging {json}`, then `packaging
                fast_variance {json} quant {json}`).
+ 21. the model hub (runs last) — ``--model-repo`` through a stand-in
+               ``huggingface_hub`` (this script's ``StubHub``, in
+               ``sys.modules`` for the phase only: the card's machine has
+               neither the package nor a network) over local directories that
+               stand for the repos, with ``$AIIS_MODEL_CACHE`` a fresh
+               directory. The tagger: a seeded full-width WD-EVA02-Large
+               ``model.safetensors`` (F32, timm names, the published layout;
+               its shapes detect as ``Eva02Config()``) and a 10,861-row
+               ``selected_tags.csv``; cli.tagging on phase 5's 7 images at B=4
+               with ``--model-dir`` on them, then ``--model-repo`` (one
+               snapshot into the cache), then ``--model-repo`` again (a cache
+               hit: no hub call), the three tag files byte-equal. CCIP: phase
+               15's model_feat.onnx and metrics.json as
+               ``deepghs/ccip_onnx``; cli.gen_cfeatures ``--model-repo`` on
+               phase 12's 200 PNGs downloads and converts into the cache:
+               config.json byte-equal to phase 15's converted one, its
+               threshold, the rows within 1e-6 of phase 15's ``--model-dir``
+               rows, and a second fetch calls no hub. Offline: with
+               ``sys.modules["huggingface_hub"] = None`` and an empty cache,
+               both CLIs' ``--model-repo`` raise a RuntimeError naming
+               --model-dir and write nothing. The checkpoint write, the
+               fetches (and the conversion) and each CLI run are timed (`hub
+               {json}`).
 
 The kernel launch counts are set to 0 just before the path that runs them and
 read just after it: the bf16 attention kernel at Dh=64 around phases 4-5 and
@@ -258,7 +283,9 @@ before each mesh's work and reads them after: one launch of each a shard for
 each normal dispatch and for each one-dispatch character pass, one more
 matvecs launch for each full-diffs dispatch, and one of each a shard for each
 served dispatch. Phase 20's archive process sets every count to 0 before each
-CLI run and reads it after.
+CLI run and reads it after; phase 21 sets the attention counts to 0 before
+each CLI run and reads them after (24 Dh=64 launches a tagger forward, 18
+Dh=32 launches a CAFormer forward).
 The last two lines are a ``kernels`` JSON object and the device line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no result.
 """
@@ -268,6 +295,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import datetime
+import fnmatch
 import json
 import os
 import re
@@ -276,6 +304,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -1822,7 +1851,8 @@ def phase_matvecs(torch, qs, build) -> dict:
     gates against the old route and the plain version at every B in 1..8 on
     edge shapes (ragged last groups, F = 1 and 7, duplicate rows), at bases
     that are not 16-byte aligned; then timed at D=1M, F=300 and F=768, B=1,
-    beside the old route and torch.mv; its launch plan and registers."""
+    beside the old route and torch.mv, and at F=300, B=8 beside the old route,
+    torch.mm and the plain version; its launch plan and registers."""
     g = torch.Generator(device=DEV).manual_seed(77)
     max_err, n = 0.0, 0
     for d in (1, 31, 33, 97, 100_003):
@@ -1865,6 +1895,13 @@ def phase_matvecs(torch, qs, build) -> dict:
         times[f"F={f} B=1"] = time_matvecs(torch, qs, m, vec)
         if f == 300:
             plain_ms = cuda_ms(lambda: qs.plain_matvecs(m, vec), iters=3, warmup=1)
+            # the rerank product of a batch of 8, in turns with torch.mm
+            vecs = torch.nn.functional.normalize(
+                torch.randn(8, f, device=DEV, generator=g), dim=1)
+            max_err = max(max_err, check_matvecs(torch, qs, m, vecs, f"D={d} F={f} B=8"))
+            times[f"F={f} B=8"] = time_matvecs(torch, qs, m, vecs)
+            times[f"F={f} B=8"]["plain_ms"] = cuda_ms(lambda: qs.plain_matvecs(m, vecs),
+                                                      iters=3, warmup=1)
         del m
         torch.cuda.empty_cache()
     main = times["F=300 B=1"]
@@ -4591,6 +4628,363 @@ def phase_packaging(torch, _build, fa, qs, caformer, config_mod, engine_mod, gen
     return res
 
 
+# ---------------------------------------------------------------- 21. the model hub
+
+HUB_TAG_CLASSES = 10861           # WD-EVA02-Large's selected_tags.csv
+HUB_CHARACTERS = 2800             # its last rows: category 4 (characters)
+HUB_RATINGS = ("general", "sensitive", "questionable", "explicit")
+HUB_LOGIT_BIAS = -3.0            # the seeded head's bias: a tagger's rare positives
+
+
+class SwapModule:
+    """``sys.modules[name] = value`` for a ``with`` block (``None`` makes any
+    import of it raise), then what was there is put back."""
+
+    _absent = object()
+
+    def __init__(self, name: str, value) -> None:
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.saved = sys.modules.get(self.name, self._absent)
+        sys.modules[self.name] = self.value
+        return self.value
+
+    def __exit__(self, *exc):
+        if self.saved is self._absent:
+            sys.modules.pop(self.name, None)
+        else:
+            sys.modules[self.name] = self.saved
+        return False
+
+
+class StubHub:
+    """A stand-in ``huggingface_hub`` for one phase (the card's machine has
+    none, and no network): ``snapshot_download`` and ``hf_hub_download`` copy
+    from local directories that stand for repos ({repo id: directory}), as the
+    real functions lay files out under ``local_dir``; each call is recorded
+    with its seconds. ``with`` puts it in ``sys.modules`` and puts back what
+    was there."""
+
+    def __init__(self, repos: dict) -> None:
+        self.repos = repos
+        self.calls: list = []
+
+    def snapshot_download(self, repo_id, local_dir=None, allow_patterns=None):
+        t0 = time.perf_counter()
+        src = self.repos[repo_id]
+        os.makedirs(local_dir, exist_ok=True)
+        for name in sorted(os.listdir(src)):
+            if allow_patterns is None or any(fnmatch.fnmatch(name, p) for p in allow_patterns):
+                shutil.copyfile(os.path.join(src, name), os.path.join(local_dir, name))
+        self.calls.append(dict(fn="snapshot_download", repo=repo_id,
+                               seconds=time.perf_counter() - t0))
+        return local_dir
+
+    def hf_hub_download(self, repo_id, filename, local_dir=None):
+        t0 = time.perf_counter()
+        src = os.path.join(self.repos[repo_id], filename)
+        if not os.path.exists(src):
+            raise FileNotFoundError(f"{repo_id} has no {filename}")
+        dst = os.path.join(local_dir, filename)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        shutil.copyfile(src, dst)
+        self.calls.append(dict(fn="hf_hub_download", repo=repo_id, file=filename,
+                               seconds=time.perf_counter() - t0))
+        return dst
+
+    def __enter__(self):
+        module = types.ModuleType("huggingface_hub")
+        module.snapshot_download = self.snapshot_download
+        module.hf_hub_download = self.hf_hub_download
+        self._swap = SwapModule("huggingface_hub", module)
+        self._swap.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._swap.__exit__(*exc)
+
+
+def eva02_timm_shapes(cfg) -> list:
+    """(name, shape, kind) of a timm-named EVA02 state dict in the published
+    WD tagger layout (SwiGLU ``fc1_g``/``fc1_x`` with its sub-LayerNorm, no
+    attention sub-LN, ``fc_norm`` + head): tests/test_torch_checkpoint.py's
+    ``timm_state_dict`` at full width. kind: fan-in of a weight, or
+    "scale"/"bias"/"embed"/"logit_bias"."""
+    d, h, p = cfg.embed_dim, cfg.mlp_hidden_dim, cfg.patch_size
+    out = [("patch_embed.proj.weight", (d, 3, p, p), 3 * p * p),
+           ("patch_embed.proj.bias", (d,), "bias"),
+           ("cls_token", (1, 1, d), "embed"),
+           ("pos_embed", (1, cfg.num_patches + 1, d), "embed")]
+    for i in range(cfg.depth):
+        b = f"blocks.{i}"
+        for ln in ("norm1", "norm2"):
+            out += [(f"{b}.{ln}.weight", (d,), "scale"), (f"{b}.{ln}.bias", (d,), "bias")]
+        out += [(f"{b}.attn.q_proj.weight", (d, d), d), (f"{b}.attn.q_proj.bias", (d,), "bias"),
+                (f"{b}.attn.k_proj.weight", (d, d), d),
+                (f"{b}.attn.v_proj.weight", (d, d), d), (f"{b}.attn.v_proj.bias", (d,), "bias"),
+                (f"{b}.attn.proj.weight", (d, d), d), (f"{b}.attn.proj.bias", (d,), "bias"),
+                (f"{b}.mlp.fc1_g.weight", (h, d), d), (f"{b}.mlp.fc1_g.bias", (h,), "bias"),
+                (f"{b}.mlp.fc1_x.weight", (h, d), d), (f"{b}.mlp.fc1_x.bias", (h,), "bias"),
+                (f"{b}.mlp.norm.weight", (h,), "scale"), (f"{b}.mlp.norm.bias", (h,), "bias"),
+                (f"{b}.mlp.fc2.weight", (d, h), h), (f"{b}.mlp.fc2.bias", (d,), "bias")]
+    out += [("fc_norm.weight", (d,), "scale"), ("fc_norm.bias", (d,), "bias"),
+            ("head.weight", (cfg.num_classes, d), d),
+            ("head.bias", (cfg.num_classes,), "logit_bias")]
+    return out
+
+
+def write_tagger_repo(torch, eva02, weights, directory: str, seed: int = 21) -> dict:
+    """A seeded full-width ``model.safetensors`` (F32, the safetensors layout:
+    an 8-byte header length, a JSON header padded to 8 bytes, the buffers in
+    header order) and a ``selected_tags.csv`` of 10,861 rows (4 ratings,
+    general tags, then characters). The values are drawn on the card and
+    written one tensor at a time: weights N(0, 1/fan-in), LayerNorm scales
+    1 + N(0, 0.02²), the head's biases HUB_LOGIT_BIAS + N(0, 0.02²) (so that a
+    line holds tens of tags, not thousands), the rest N(0, 0.02²). Returns the config the port's
+    ``detect_config_from_state_dict`` reads from the header's shapes and the
+    file's size."""
+    cfg = eva02.Eva02Config()
+    shapes = eva02_timm_shapes(cfg)
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, shape, _ in shapes:
+        n = 4 * int(np.prod(shape))
+        header[name] = dict(dtype="F32", shape=list(shape), data_offsets=[offset, offset + n])
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    os.makedirs(directory)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    path = os.path.join(directory, "model.safetensors")
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little") + blob)
+        for _, shape, kind in shapes:
+            x = torch.randn(shape, device=DEV, generator=gen)
+            if kind == "scale":
+                x = 1.0 + 0.02 * x
+            elif kind in ("bias", "embed"):
+                x = 0.02 * x
+            elif kind == "logit_bias":
+                x = 0.02 * x + HUB_LOGIT_BIAS
+            else:
+                x = x * kind ** -0.5
+            f.write(x.cpu().numpy().astype("<f4").tobytes())
+    n_general = HUB_TAG_CLASSES - len(HUB_RATINGS) - HUB_CHARACTERS
+    with open(os.path.join(directory, "selected_tags.csv"), "w", encoding="utf-8") as f:
+        f.write("tag_id,name,category,count\n")
+        for i, r in enumerate(HUB_RATINGS):
+            f.write(f"{9999990 + i},{r},9,0\n")
+        for i in range(n_general):
+            f.write(f"{i},general tag {i},0,{n_general - i}\n")
+        for i in range(HUB_CHARACTERS):
+            f.write(f"{100000 + i},character_{i}_(series),4,{HUB_CHARACTERS - i}\n")
+    detected = weights.detect_config_from_state_dict(
+        {name: types.SimpleNamespace(shape=shape) for name, shape, _ in shapes})
+    return dict(config=detected, bytes=os.path.getsize(path))
+
+
+class TimedAttr:
+    """Wraps ``module.name`` (a function) for a ``with`` block so that each
+    call's seconds are appended to ``seconds``."""
+
+    def __init__(self, module, name: str) -> None:
+        self.module, self.name, self.seconds = module, name, []
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
+def in_dir(directory: str, fn):
+    """``fn()`` run with ``directory`` (made here) as the cwd; its wall seconds
+    (the CLIs end on host copies of their results, so the card's work is in it)."""
+    os.makedirs(directory)
+    cwd = os.getcwd()
+    os.chdir(directory)
+    try:
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+
+
+def expect_offline(fn, what: str) -> str:
+    """``fn()`` must raise RuntimeError naming --model-dir; returns its message."""
+    try:
+        fn()
+    except RuntimeError as e:
+        check("--model-dir" in str(e), f"phase 21: {what}'s offline error names no "
+              f"--model-dir: {e}")
+        return str(e)
+    fail(f"phase 21: {what} with no huggingface_hub and an empty cache did not raise")
+
+
+def phase_hub(torch, fa, tagging, gen_cfeatures, eva02, config_mod, artifacts, similarity,
+              gen_ctx, tmp, smi) -> dict:
+    """Phase 21: ``--model-repo`` on the card through a stand-in
+    ``huggingface_hub`` (the card's machine has neither the package nor a
+    network). The tagger: a seeded full-width WD-EVA02-Large checkpoint in the
+    published layout stands for the repo; ``tagging --model-dir`` on it, then
+    ``tagging --model-repo`` into an empty ``$AIIS_MODEL_CACHE`` (one
+    snapshot), then again (a cache hit: no hub call), each on phase 5's 7
+    images at B=4: the three tag files byte-equal, 24 Dh=64 launches a
+    forward. CCIP: phase 15's export-style model_feat.onnx and metrics.json
+    stand for the repo; ``gen_cfeatures --model-repo`` on phase 12's 200
+    PNGs converts into the cache: config.json byte-equal to phase 15's
+    converted one, the threshold phase 15's, the rows phase 15's
+    ``--model-dir`` rows within its gate, 18 Dh=32 launches a forward; a
+    second fetch is a cache hit. Offline: with ``huggingface_hub`` blocked,
+    both CLIs' ``--model-repo`` into an empty cache raise a RuntimeError
+    naming --model-dir and write nothing."""
+    from anime_illust_image_searcher_tpu_torch.models import hub, weights
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "hub")
+    os.makedirs(root)
+    saved_cache = os.environ.get("AIIS_MODEL_CACHE")
+    res = dict(card=smi)
+    try:
+        # the tagger: its repo, --model-dir, --model-repo, the cache hit
+        t0 = time.perf_counter()
+        repo = write_tagger_repo(torch, eva02, weights, os.path.join(root, "tagger_repo"))
+        res["checkpoint_write_s"] = time.perf_counter() - t0
+        res["checkpoint_gb"] = repo["bytes"] / 1e9
+        check(repo["config"] == eva02.Eva02Config(),
+              f"phase 21: the checkpoint's detected config is not Eva02Config(): {repo['config']}")
+        imgs = os.path.join(root, "tag_imgs")
+        write_cli_images(imgs)
+        tag_argv = ["--dir", imgs, "--batch-size", "4"]
+        os.environ["AIIS_MODEL_CACHE"] = os.path.join(root, "cache")
+        tag_repo = hub.DEFAULT_TAGGER_REPO
+        files, cli_s, launches = {}, {}, {}
+        with StubHub({tag_repo: os.path.join(root, "tagger_repo")}) as stub, \
+                TimedAttr(tagging, "fetch_tagger_repo") as fetch:
+            for name, extra in (("model_dir", ["--model-dir", os.path.join(root, "tagger_repo")]),
+                                ("model_repo", ["--model-repo", tag_repo]),
+                                ("cache_hit", ["--model-repo", tag_repo])):
+                stub.calls.clear()
+                fa.reset_launches()
+                cwd = os.path.join(root, f"tag_{name}")
+                cli_s[name] = in_dir(cwd, lambda: tagging.main(tag_argv + extra, device=DEV))
+                launches[name] = dict(fa.mha_attention.launches)
+                check(fa.mha_attention.launches == {64: 24 * 2, 32: 0}
+                      and fa.mha_attention.launches_f32 == {64: 0, 32: 0},
+                      f"phase 21: tagging {name} launched {fa.mha_attention.launches} "
+                      f"(f32 {fa.mha_attention.launches_f32}), expected 48 at Dh=64")
+                files[name] = file_bytes(os.path.join(cwd, "tags-wd-tagger.txt"))
+                want_calls = 1 if name == "model_repo" else 0
+                check(len(stub.calls) == want_calls,
+                      f"phase 21: tagging {name} made {len(stub.calls)} hub calls, "
+                      f"expected {want_calls}")
+                if name == "model_repo":
+                    res["tagger_fetch"] = dict(stub.calls[0], fetch_s=fetch.seconds[-1])
+                torch.cuda.empty_cache()
+        dest = os.path.join(root, "cache", tag_repo.replace("/", "__"))
+        check(sorted(os.listdir(dest)) == ["model.safetensors", "selected_tags.csv"]
+              and os.path.getsize(os.path.join(dest, "model.safetensors")) == repo["bytes"],
+              f"phase 21: the tagger's cache dir holds {os.listdir(dest)}")
+        check(files["model_repo"] == files["model_dir"] == files["cache_hit"]
+              and files["model_dir"].count(b"\n") == 7,
+              "phase 21: tagging --model-repo's tag file differs from --model-dir's")
+        res["tagging"] = dict(images=7, batch=4, cli_s=cli_s, launches=launches,
+                              tag_file_bytes=len(files["model_dir"]),
+                              tags_per_line=files["model_dir"].count(b",") / 7)
+        os.remove(os.path.join(dest, "model.safetensors"))
+        shutil.rmtree(os.path.join(root, "tagger_repo"))
+
+        # CCIP: phase 15's files as the repo, gen_cfeatures --model-repo
+        work15 = os.path.join(tmp, "ccip_onnx")
+        ccip_repo = os.path.join(root, "ccip_repo")
+        os.makedirs(os.path.join(ccip_repo, hub.DEFAULT_CCIP_MODEL))
+        for f in ("model_feat.onnx", "metrics.json"):
+            os.symlink(os.path.join(work15, f),
+                       os.path.join(ccip_repo, hub.DEFAULT_CCIP_MODEL, f))
+        cfg = config_mod.CCIPConfig()
+        with StubHub({hub.DEFAULT_CCIP_REPO: ccip_repo}) as stub, \
+                TimedAttr(gen_cfeatures, "fetch_ccip_repo") as fetch:
+            fa.reset_launches()
+            gen_cwd = os.path.join(root, "cf_model_repo")
+            gen_s = in_dir(gen_cwd, lambda: gen_cfeatures.main(
+                ["--dir", gen_ctx["imgs"], "--model-repo", hub.DEFAULT_CCIP_REPO], device=DEV))
+            gen_launches = dict(fa.mha_attention.launches)
+            n = len(gen_ctx["rows"])
+            forwards = -(-n // cfg.batch_size)
+            check(fa.mha_attention.launches == {64: 0, 32: 18 * forwards}
+                  and fa.mha_attention.launches_f32 == {64: 0, 32: 0},
+                  f"phase 21: gen_cfeatures --model-repo launched "
+                  f"{fa.mha_attention.launches}, expected 18 x {forwards} at Dh=32")
+            check([c["file"] for c in stub.calls] == [
+                f"{hub.DEFAULT_CCIP_MODEL}/model_feat.onnx", f"{hub.DEFAULT_CCIP_MODEL}/metrics.json"],
+                f"phase 21: gen_cfeatures --model-repo's hub calls {stub.calls}")
+            ccip_calls = list(stub.calls)
+            stub.calls.clear()
+            cdest = hub.fetch_ccip_repo(hub.DEFAULT_CCIP_REPO)
+            check(stub.calls == [], f"phase 21: a second CCIP fetch called the hub: {stub.calls}")
+        check(file_bytes(os.path.join(cdest, "config.json"))
+              == file_bytes(os.path.join(work15, "ckpt", "config.json")),
+              "phase 21: the fetched config.json differs from phase 15's converted one")
+        thr = json.loads(file_bytes(os.path.join(cdest, "config.json")))["threshold"]
+        check(thr == METRIC_THRESHOLD, f"phase 21: threshold {thr}, phase 15's {METRIC_THRESHOLD}")
+
+        def rows(directory):
+            with open(os.path.join(directory, artifacts.CFEATURES_CSV), encoding="utf-8") as fh:
+                paths = fh.read().splitlines()
+            idx = similarity.SimilarityIndex.load(
+                os.path.join(directory, artifacts.cfeatures_index_name(0)))
+            return {os.path.basename(p): np.asarray(r) for p, r in zip(paths, idx.matrix)}
+
+        got, want = rows(gen_cwd), rows(os.path.join(work15, "gen"))
+        check(sorted(got) == sorted(want) and len(got) == n,
+              "phase 21: gen_cfeatures --model-repo indexed other files than phase 15")
+        row_err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        check(row_err <= 1e-6, f"phase 21: --model-repo rows differ from phase 15's by {row_err}")
+        res["ccip"] = dict(images=n, batch=cfg.batch_size, hub_calls=ccip_calls,
+                           fetch_convert_s=fetch.seconds[-1], cli_s=gen_s,
+                           launches=gen_launches, threshold=thr,
+                           rows_vs_phase15_max_diff=row_err, config_json_equal=True)
+        torch.cuda.empty_cache()
+
+        # offline: no huggingface_hub, an empty cache
+        os.environ["AIIS_MODEL_CACHE"] = os.path.join(root, "empty_cache")
+        off_cwd = os.path.join(root, "offline")
+        os.makedirs(off_cwd)
+        with SwapModule("huggingface_hub", None):
+            res["offline"] = dict(
+                tagging=expect_offline(lambda: in_dir(os.path.join(off_cwd, "t"), lambda: (
+                    tagging.main(tag_argv + ["--model-repo", tag_repo], device=DEV))),
+                    "tagging --model-repo"),
+                gen_cfeatures=expect_offline(lambda: in_dir(os.path.join(off_cwd, "c"), lambda: (
+                    gen_cfeatures.main(["--dir", imgs, "--model-repo", hub.DEFAULT_CCIP_REPO],
+                                       device=DEV))), "gen_cfeatures --model-repo"))
+        check(not os.path.exists(os.path.join(root, "empty_cache"))
+              and all(os.listdir(os.path.join(off_cwd, d)) == [] for d in ("t", "c")),
+              "phase 21: an offline --model-repo run wrote files")
+    finally:
+        if saved_cache is None:
+            os.environ.pop("AIIS_MODEL_CACHE", None)
+        else:
+            os.environ["AIIS_MODEL_CACHE"] = saved_cache
+    res["launches"] = dict(dh64=sum(v[64] for v in res["tagging"]["launches"].values()),
+                           dh32=res["ccip"]["launches"][32])
+    res["seconds"] = time.perf_counter() - t_phase
+    print("hub " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -4798,6 +5192,14 @@ def main() -> None:
         kernels[1]["launches"] += pack_res["launches"]["gen_cfeatures_dh32"]
         kernels[2]["launches"] += pack_res["launches"]["webui_query_scores"]
         kernels[3]["launches"] += pack_res["launches"]["webui_matvecs"]
+
+        # 21. the model hub: --model-repo on tagging (a full-width checkpoint in
+        # the published layout) and gen_cfeatures (phase 15's ONNX files)
+        # through a stand-in huggingface_hub, counts set to 0 before each CLI run
+        hub_res = phase_hub(torch, fa, tagging, gen_cfeatures, eva02, config_mod, artifacts,
+                            similarity, gen_ctx, tmp, smi)
+        kernels[0]["launches"] += hub_res["launches"]["dh64"]
+        kernels[1]["launches"] += hub_res["launches"]["dh32"]
     torch.cuda.empty_cache()
 
     one = query_res["single"]
@@ -4860,7 +5262,13 @@ def main() -> None:
                        for k in ("tagging", "gen_cfeatures", "webui"))
           + " s (tree " + " / ".join(f"{pack_res['cli_s'][k]['tree']:.1f}"
                                      for k in ("tagging", "gen_cfeatures", "webui"))
-          + f" s), genmodel {pack_res['genmodel_s']['archive']:.1f} s; on {smi}",
+          + f" s), genmodel {pack_res['genmodel_s']['archive']:.1f} s; the hub (phase 21): "
+          f"checkpoint write {hub_res['checkpoint_write_s']:.1f} s, tagger fetch "
+          f"{hub_res['tagger_fetch']['fetch_s']:.1f} s, CCIP fetch + convert "
+          f"{hub_res['ccip']['fetch_convert_s']:.1f} s, tagging --model-dir / --model-repo / "
+          "cache hit " + " / ".join(f"{hub_res['tagging']['cli_s'][k]:.1f}"
+                                    for k in ("model_dir", "model_repo", "cache_hit"))
+          + f" s, gen_cfeatures --model-repo {hub_res['ccip']['cli_s']:.1f} s; on {smi}",
           flush=True)
     kernels += f32_kernels
     print(smi, flush=True)
