@@ -50,7 +50,8 @@ from ..index.similarity import SimilarityIndex
 from ..models.ccip import CCIPPredictor
 from ..models.hub import fetch_ccip_repo
 from ..parallel.mesh import DATA_AXIS, data_parallel_batch, local_mesh
-from ..utils.profiling import trace
+from ..utils.pipeline import run_depth1
+from ..utils.profiling import span, trace
 from ..utils.progress import ProgressMeter
 
 
@@ -109,30 +110,24 @@ class Predictor(CCIPPredictor):
             workers=cfg.decode_workers, pad_to_square=False, resample=Image.BILINEAR,
         )
         with open(artifacts.CFEATURES_CSV, "a", encoding="utf-8") as out:
-            def flush(pending) -> None:
-                pbatch, dev = pending
-                feats = dev.cpu().numpy()[: pbatch.valid]
-                for path in pbatch.paths:
+            def collect(batch, dev) -> np.ndarray:
+                with span("step.copy_back"):
+                    return dev.cpu().numpy()[: batch.valid]
+
+            def write(batch, feats) -> None:
+                for path in batch.paths:
                     out.write(path + "\n")
                 self.cindex.add_documents(list(feats), stamp=build_started)
-                meter.add(pbatch.valid)
+                meter.add(batch.valid)
 
-            # depth-1 pipeline: queue batch N on the card, then copy back and
-            # index batch N-1 while the card runs
-            pending = None
-            for batch in loader:
-                dev = self.ccip_extract_device(batch.images)
-                if pending is not None:
-                    flush(pending)
-                pending = (batch, dev)
-            if pending is not None:
-                flush(pending)
+            run_depth1(loader, lambda batch: self.ccip_extract_device(batch.images),
+                       collect, write)
         stamped = np.asarray(self.cindex.stamps)
         stamped = stamped[stamped > 0]
         self.cindex.meta["build_started"] = float(
             min(stamped.min(), build_started)) if len(stamped) else build_started
         self.cindex.save(index_name)
-        meter.report(final=True)
+        meter.report()
         loader.report_failures()
 
 

@@ -48,6 +48,7 @@ from ..index import artifacts
 from ..models.hub import fetch_tagger_repo
 from ..models.tagger import TaggerPredictor
 from ..parallel.mesh import DATA_AXIS, data_parallel_batch, local_mesh
+from ..utils.pipeline import run_depth1
 from ..utils.profiling import trace
 from ..utils.progress import ProgressMeter
 
@@ -86,28 +87,22 @@ class Predictor(TaggerPredictor):
             decode_fn=decode_fn,
         )
         with open(cfg.output_file, "a", encoding="utf-8") as out:
-            def flush(pending) -> None:
-                pbatch, devs = pending
-                results = self.finalize(
+            def write(batch, lines) -> None:
+                for path, line in zip(batch.paths, lines[: batch.valid]):
+                    out.write(path + "," + line + "\n")
+                meter.add(batch.valid)
+
+            run_depth1(
+                loader,
+                lambda batch: self.predict_device(batch.images),
+                lambda batch, devs: self.finalize(
                     devs,
                     cfg.general_thresh, cfg.general_mcut_enabled,
                     cfg.character_thresh, cfg.character_mcut_enabled,
-                )
-                for path, line in zip(pbatch.paths, results[: pbatch.valid]):
-                    out.write(path + "," + line + "\n")
-                meter.add(pbatch.valid)
-
-            # depth-1 pipeline: queue batch N on the card, then assemble batch
-            # N-1's lines on the host while the card runs.
-            pending = None
-            for batch in loader:
-                devs = self.predict_device(batch.images)
-                if pending is not None:
-                    flush(pending)
-                pending = (batch, devs)
-            if pending is not None:
-                flush(pending)
-        meter.report(final=True)
+                ),
+                write,
+            )
+        meter.report()
         loader.report_failures()
 
 

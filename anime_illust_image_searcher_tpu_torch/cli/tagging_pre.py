@@ -34,6 +34,7 @@ from ..config import DEFAULT_CONFIG, TaggerConfig
 from ..data.ingest import PrefetchLoader
 from ..device import DeviceLike
 from ..models.tagger import TaggerPredictor
+from ..utils.pipeline import run_depth1
 from ..utils.progress import ProgressMeter
 
 DEFAULT_BATCH = DEFAULT_CONFIG.tagger.batch_size
@@ -115,32 +116,26 @@ def main(arg_str: List[str], device: DeviceLike = None) -> None:
         workers=cfg.decode_workers, decode_fn=load_npy(cfg.image_size),
     )
     with open(cfg.output_file, "w", encoding="utf-8") as out:  # 'w': colab semantics
-        def flush(pending) -> None:
-            pbatch, devs = pending
-            results = predictor.finalize(
-                devs,
-                cfg.general_thresh, cfg.general_mcut_enabled,
-                cfg.character_thresh, cfg.character_mcut_enabled,
-            )
-            for path, line in zip(pbatch.paths, results[: pbatch.valid]):
+        def write(batch, lines) -> None:
+            for path, line in zip(batch.paths, lines[: batch.valid]):
                 # .npy files map back to the image path; reference .pt tensor
                 # files already CARRY the image path (colab_env/tagging.py:291)
                 if path.endswith(".npy"):
                     path = path[: -len(".npy")]
                 out.write(path + "," + line + "\n")
-            meter.add(pbatch.valid)
+            meter.add(batch.valid)
 
-        # depth-1 pipeline like cli/tagging.py: queue batch N on the card,
-        # then assemble batch N-1's lines on the host while it runs
-        pending = None
-        for batch in loader:
-            devs = predictor.predict_device(batch.images)
-            if pending is not None:
-                flush(pending)
-            pending = (batch, devs)
-        if pending is not None:
-            flush(pending)
-    meter.report(final=True)
+        run_depth1(
+            loader,
+            lambda batch: predictor.predict_device(batch.images),
+            lambda batch, devs: predictor.finalize(
+                devs,
+                cfg.general_thresh, cfg.general_mcut_enabled,
+                cfg.character_thresh, cfg.character_mcut_enabled,
+            ),
+            write,
+        )
+    meter.report()
     loader.report_failures()
 
 

@@ -74,7 +74,7 @@ class Predictor:
                     print("Failed to convert image to tensor")
                     continue
                 meter.add(1)
-        meter.report(final=True)
+        meter.report()
 
 
 def main(arg_str: List[str]) -> None:

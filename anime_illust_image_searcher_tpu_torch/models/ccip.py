@@ -41,6 +41,7 @@ from ..device import DeviceLike, to_device
 from ..parallel.mesh import (
     Mesh, device_scope, gather_rows, predictor_mesh, replicate, shard_rows,
 )
+from ..utils.profiling import span
 from .caformer import (
     CAFormer, CAFormerConfig, _rerank_diffs_from_rows, _valid_mean,
     ccip_batch_differences_op, ccip_differences_vs_index_op,
@@ -228,11 +229,14 @@ class CCIPPredictor:
         device's replica with no sync between shards, so that distinct cards
         overlap; the features gathered in order on the first device."""
         feats = []
-        for dev, x in zip(self.mesh.devices, shard_rows(self.mesh, images_u8)):
-            model, mean, std = self._replicas[dev]
-            with device_scope(dev):
-                feats.append(extract_features(model, x, mean, std))
-        return gather_rows(feats, self.device)
+        with span("step.h2d"):
+            blocks = shard_rows(self.mesh, images_u8)
+        with span("step.launch"):
+            for dev, x in zip(self.mesh.devices, blocks):
+                model, mean, std = self._replicas[dev]
+                with device_scope(dev):
+                    feats.append(extract_features(model, x, mean, std))
+            return gather_rows(feats, self.device)
 
     def ccip_batch_extract_features(self, images_u8: np.ndarray) -> np.ndarray:
         """(B, S, S, 3) uint8 RGB -> (B, feature_dim) f32."""

@@ -31,6 +31,7 @@ from ..ops.mcut import mcut_threshold_batch
 from ..parallel.mesh import (
     Mesh, device_scope, gather_rows, predictor_mesh, replicate, shard_rows,
 )
+from ..utils.profiling import span
 from .eva02 import Eva02, Eva02Config, init_params
 from .weights import LabelSet, load_tagger_checkpoint
 
@@ -163,15 +164,18 @@ class TaggerPredictor:
         order on the first device."""
         outs = []
         with torch.inference_mode():
-            for dev, x in zip(self.mesh.devices, shard_rows(self.mesh, images_u8)):
-                model, general, character, mean, std = self._replicas[dev]
-                with device_scope(dev):
-                    probs = _predict_probs(model, x, mean, std)
-                    outs.append((probs, *_category_thresholds(
-                        probs, general, character, self.config.character_thresh_floor))
-                        if thresholds else (probs,))
-            return tuple(gather_rows([o[i] for o in outs], self.device)
-                         for i in range(len(outs[0])))
+            with span("step.h2d"):
+                blocks = shard_rows(self.mesh, images_u8)
+            with span("step.launch"):
+                for dev, x in zip(self.mesh.devices, blocks):
+                    model, general, character, mean, std = self._replicas[dev]
+                    with device_scope(dev):
+                        probs = _predict_probs(model, x, mean, std)
+                        outs.append((probs, *_category_thresholds(
+                            probs, general, character, self.config.character_thresh_floor))
+                            if thresholds else (probs,))
+                return tuple(gather_rows([o[i] for o in outs], self.device)
+                             for i in range(len(outs[0])))
 
     def predict_device(self, images_u8: np.ndarray):
         """Queue the device part (forward + thresholds) WITHOUT a sync — lets the
@@ -203,21 +207,23 @@ class TaggerPredictor:
         character_mcut_enabled: bool,
     ) -> List[str]:
         probs_dev, g_thresh_dev, c_thresh_dev = device_outputs
-        probs = probs_dev.cpu().numpy()
-        g_mcut = g_thresh_dev.cpu().numpy()
-        c_mcut = c_thresh_dev.cpu().numpy()
+        with span("step.copy_back"):
+            probs = probs_dev.cpu().numpy()
+            g_mcut = g_thresh_dev.cpu().numpy()
+            c_mcut = c_thresh_dev.cpu().numpy()
 
-        general = probs[:, self._general_idx_np]
-        character = probs[:, self._character_idx_np]
+        with span("tagger.assemble"):
+            general = probs[:, self._general_idx_np]
+            character = probs[:, self._character_idx_np]
 
-        ret_strings: List[str] = []
-        for idx in range(probs.shape[0]):
-            g_t = g_mcut[idx] if general_mcut_enabled else general_thresh
-            c_t = c_mcut[idx] if character_mcut_enabled else character_thresh
+            ret_strings: List[str] = []
+            for idx in range(probs.shape[0]):
+                g_t = g_mcut[idx] if general_mcut_enabled else general_thresh
+                c_t = c_mcut[idx] if character_mcut_enabled else character_thresh
 
-            ret_strings.append(
-                self._assemble_line(general[idx], g_t, character[idx], c_t)
-            )
+                ret_strings.append(
+                    self._assemble_line(general[idx], g_t, character[idx], c_t)
+                )
         return ret_strings
 
     @staticmethod

@@ -1,21 +1,18 @@
-"""Throughput telemetry (copy of the JAX package's utils/progress.ProgressMeter).
+"""Progress lines (copy of the JAX package's utils/progress.ProgressMeter).
 
 The reference prints elapsed seconds + sec/file every PROGRESS_INTERVAL files
-(tagging.py:342-351, gen_cfeatures.py:428-437). This keeps that surface and adds
-images/sec and an optional JSON line for machine consumption.
+(tagging.py:342-351, gen_cfeatures.py:428-437); this keeps that surface.
 """
 
 from __future__ import annotations
 
-import json
 import time
 
 
 class ProgressMeter:
-    def __init__(self, interval: int, label: str = "files", emit_json: bool = False) -> None:
+    def __init__(self, interval: int, label: str = "files") -> None:
         self.interval = interval
         self.label = label
-        self.emit_json = emit_json
         self.start = time.perf_counter()
         self.count = 0
         self._last_reported = 0
@@ -29,21 +26,10 @@ class ProgressMeter:
     def elapsed(self) -> float:
         return time.perf_counter() - self.start
 
-    def rate(self) -> float:
-        el = self.elapsed()
-        return self.count / el if el > 0 else 0.0
-
-    def report(self, final: bool = False) -> None:
+    def report(self) -> None:
         diff = self.elapsed()
         print(f"{self.count} {self.label} processed")
         print("{:.2f} seconds elapsed".format(diff))
         if self.count > 0:
             print("{:.4f} seconds per file".format(diff / self.count))
-        if self.emit_json:
-            print(json.dumps({
-                "count": self.count,
-                "elapsed_s": round(diff, 3),
-                "rate_per_s": round(self.rate(), 3),
-                "final": final,
-            }))
         print("", flush=True)
