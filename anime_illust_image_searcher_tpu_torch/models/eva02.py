@@ -26,6 +26,14 @@ q/k projections are stored in the half-split head-dim order that
 timm dim 2i+1); ``models/weights.py`` applies it when loading timm weights.
 Only the ``sliced`` rope layout is implemented: ``idrow`` was a TPU relayout
 knob with bit-identical outputs.
+
+A bf16 SwiGLU whose hidden width is not a multiple of 8 (EVA02-L's 2730: a row
+of 5,460 bytes) runs its three GEMMs at ``padded_hidden``, whose rows are
+16-byte aligned: cuBLAS's Hopper kernels load their operands by TMA, which
+takes no other leading dimension, and an unaligned GEMM falls back to an sm80
+``mma.sync`` kernel. ``w1``/``w2`` hold zero rows and ``w3`` zero columns in the
+pad (``PaddedLinear``), so the math is unchanged, and the state dict carries
+the published shapes.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import mha_attention
-from ..ops.quant import Int8Linear, int8_quantize_rows
+from ..ops.quant import ALIGN, Int8Linear, int8_quantize_rows, round_up
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,11 +169,81 @@ def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         layer.bias, layer.eps)
 
 
-def _block_linear(cfg: Eva02Config, n_in: int, n_out: int, bias: bool = True, device=None):
-    """A block-level Linear: the compute dtype, or the int8 path."""
+def _block_linear(cfg: Eva02Config, n_in: int, n_out: int, bias: bool = True, device=None,
+                  padded: Optional[Tuple[int, int]] = None):
+    """A block-level Linear: the compute dtype, or the int8 path. ``padded``
+    (in, out) holds it at that padded shape (``PaddedLinear``) where it
+    differs from (n_in, n_out); the int8 path pads its own operands."""
     if cfg.quant == "int8":
         return Int8Linear(n_in, n_out, bias=bias, out_dtype=cfg.dtype, device=device)
+    if padded is not None and padded != (n_in, n_out):
+        return PaddedLinear(n_in, n_out, *padded, bias=bias, device=device, dtype=cfg.dtype)
     return nn.Linear(n_in, n_out, bias=bias, device=device, dtype=cfg.dtype)
+
+
+def padded_hidden(cfg: Eva02Config) -> int:
+    """The width a SwiGLU of ``cfg`` runs its GEMMs at. In a 16-bit compute
+    dtype, the hidden width rounded up to a multiple of 8, which makes the rows
+    16-byte aligned for cuBLAS's sm90 GEMMs: on an H100 that gave EVA02-L's
+    three SwiGLU GEMMs at B=256 less device time than whole tiles of 64 or 128
+    did (6.85 ms at 2736 against 7.09 at 2752, 7.26 at 2816 and 19.31
+    unpadded; tools/swiglu_pad_ab.py). f32 keeps its width: with TF32 off its
+    GEMMs run the same SIMT kernel at either width, and the padded route's
+    copies made EVA02-L's f32 forward at B=64 2.2% slower (1,074 against
+    1,051 ms). The int8 path pads its own operands."""
+    if cfg.quant == "int8" or cfg.dtype.itemsize != 2:
+        return cfg.mlp_hidden_dim
+    return round_up(cfg.mlp_hidden_dim, ALIGN)
+
+
+class PaddedLinear(nn.Linear):
+    """A Linear of published shape (out_features, in_features) whose weight
+    and bias are held zero-padded to (out_padded, in_padded): it reads an
+    input of width ``in_padded`` whose pad columns are 0 and writes an output
+    of width ``out_padded`` whose pad columns are exactly 0.
+
+    ``in_features``/``out_features`` are the published widths. The state dict
+    carries the published shapes (views of the published rows and columns),
+    and a published-shape tensor loads into them, so checkpoints, converters and
+    replicas see the layer as an ``nn.Linear`` of that shape."""
+
+    def __init__(self, in_features: int, out_features: int, in_padded: int, out_padded: int,
+                 bias: bool = True, device=None, dtype=None) -> None:
+        super().__init__(in_padded, out_padded, bias=bias, device=device, dtype=dtype)
+        self.in_features, self.out_features = in_features, out_features
+        with torch.no_grad():
+            self.weight.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def published(self, t: torch.Tensor) -> torch.Tensor:
+        """The published rows and columns of the weight or the bias ``t`` (a view)."""
+        if t.dim() == 2:
+            return t[: self.out_features, : self.in_features]
+        return t[: self.out_features]
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        for key in (prefix + "weight", prefix + "bias"):
+            if key in destination:
+                destination[key] = self.published(destination[key])
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a published-shape tensor is copied into the published rows and
+        # columns, and the parameter stands in for it (its copy onto itself is
+        # a no-op); the pads stay 0
+        for name in ("weight", "bias"):
+            param, key = getattr(self, name), prefix + name
+            if param is not None and key in state_dict \
+                    and state_dict[key].shape == self.published(param).shape:
+                with torch.no_grad():
+                    self.published(param).copy_(state_dict[key])
+                state_dict[key] = param
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def extra_repr(self) -> str:
+        return (f"{super().extra_repr()}, padded to ({self.weight.shape[0]}, "
+                f"{self.weight.shape[1]})")
 
 
 def _linears(layers, x: torch.Tensor):
@@ -214,19 +293,43 @@ class EvaAttention(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    """EVA02 MLP: silu(w1(x)) * w2(x) -> sub-LN -> w3 (timm SwiGLU: fc1_g/fc1_x/norm/fc2)."""
+    """EVA02 MLP: silu(w1(x)) * w2(x) -> sub-LN -> w3 (timm SwiGLU: fc1_g/fc1_x/norm/fc2).
+
+    At an unaligned hidden width (``padded_hidden``) the three Linears are
+    ``PaddedLinear``s at ``hidden_padded``: ``g`` and ``u`` come out with zero
+    pad columns, the sub-LN reads the real ones, and its output is written,
+    in w3's dtype, into a buffer whose pad columns are zeroed. Such a forward
+    is the span ``swiglu.pad_<hidden>_to_<hidden_padded>``, so a profiled run
+    counts them (``utils/profiling``)."""
 
     def __init__(self, cfg: Eva02Config, device=None) -> None:
         super().__init__()
         d, hid = cfg.embed_dim, cfg.mlp_hidden_dim
-        self.w1 = _block_linear(cfg, d, hid, device=device)
-        self.w2 = _block_linear(cfg, d, hid, device=device)
+        self.hidden, self.hidden_padded = hid, padded_hidden(cfg)
+        hp = self.hidden_padded
+        self.w1 = _block_linear(cfg, d, hid, device=device, padded=(d, hp))
+        self.w2 = _block_linear(cfg, d, hid, device=device, padded=(d, hp))
         self.norm = nn.LayerNorm(hid, eps=cfg.layer_norm_eps, device=device)
-        self.w3 = _block_linear(cfg, hid, d, device=device)
+        self.w3 = _block_linear(cfg, hid, d, device=device, padded=(hp, d))
+        self._span = f"swiglu.pad_{hid}_to_{hp}"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g, u = _linears((self.w1, self.w2), x)
-        return _linears((self.w3,), _layer_norm(self.norm, F.silu(g) * u))[0]
+        hid = self.hidden
+        if self.hidden_padded == hid:
+            return _linears((self.w3,), _layer_norm(self.norm, F.silu(g) * u))[0]
+        with span(self._span):
+            n = _layer_norm(self.norm, (F.silu(g) * u)[..., :hid])
+            del g, u
+            # the cast into w3's dtype is the copy into the buffer, made once
+            # the sub-LN's f32 input is freed; pad columns left unwritten could
+            # hold NaN, which 0 * NaN would carry into w3's sums
+            y = torch.empty(n.shape[:-1] + (self.hidden_padded,), dtype=self.w3.weight.dtype,
+                            device=n.device)
+            y[..., hid:].zero_()
+            y[..., :hid] = n
+            del n
+            return F.linear(y, self.w3.weight, self.w3.bias)
 
 
 class EvaBlock(nn.Module):
@@ -341,8 +444,11 @@ def init_params(model: Eva02, seed: int = 0) -> None:
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
-            fill(m.weight, lambda t: _lecun_normal_(t, fan_in, gen))
+            # a PaddedLinear draws its published shape into its real rows and
+            # columns: the same draws as the unpadded layer
+            w = m.published(m.weight) if isinstance(m, PaddedLinear) else m.weight
+            fan_in = w[0].numel()
+            fill(w, lambda t: _lecun_normal_(t, fan_in, gen))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.LayerNorm):

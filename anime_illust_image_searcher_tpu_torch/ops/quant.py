@@ -34,11 +34,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_ALIGN = 8        # torch._int_mm: K and N multiples of 8
+ALIGN = 8         # torch._int_mm: K and N multiples of 8
 _MIN_ROWS = 17    # torch._int_mm: M > 16
 
 
-def _round_up(n: int, m: int) -> int:
+def round_up(n: int, m: int) -> int:
     return (n + m - 1) // m * m
 
 
@@ -81,7 +81,7 @@ def pad_int8_operands(a: torch.Tensor, b_t: torch.Tensor) -> Tuple[torch.Tensor,
     ``Int8Linear``'s weight does), N to a multiple of 8, M to more than 16.
     The product's first (M, N) block is unchanged: zero columns add nothing."""
     (m, ka), (n, kb) = a.shape, b_t.shape
-    kp, np_, mp = _round_up(max(ka, kb), _ALIGN), _round_up(n, _ALIGN), max(m, _MIN_ROWS)
+    kp, np_, mp = round_up(max(ka, kb), ALIGN), round_up(n, ALIGN), max(m, _MIN_ROWS)
     if (mp, kp) != (m, ka):
         a = F.pad(a, (0, kp - ka, 0, mp - m))
     if (np_, kp) != (n, kb):
@@ -140,7 +140,7 @@ class Int8Linear(nn.Module):
         self.in_features = in_features
         self.out_features = out_features
         self.out_dtype = out_dtype
-        kp, np_ = _round_up(in_features, _ALIGN), _round_up(out_features, _ALIGN)
+        kp, np_ = round_up(in_features, ALIGN), round_up(out_features, ALIGN)
         self.register_buffer("weight_q", torch.zeros(np_, kp, dtype=torch.int8, device=device))
         self.register_buffer("weight_scale", torch.ones(out_features, device=device))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if bias else None

@@ -8,6 +8,7 @@ JAX attention through its plain XLA reference; logits must agree to 1e-5.
 """
 
 import dataclasses
+import io
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ import torch
 from anime_illust_image_searcher_tpu.models import eva02 as jeva
 from anime_illust_image_searcher_tpu_torch.models import eva02 as teva
 from anime_illust_image_searcher_tpu_torch.models.weights import from_jax_params
+from anime_illust_image_searcher_tpu_torch.utils import profiling
 
 
 def perturb(params, seed):
@@ -67,6 +69,9 @@ def images():
     dict(global_pool="token"),
     dict(scale_attn_inner=True, use_layer_scale=True),
     dict(scale_attn_inner=True, use_layer_scale=True, global_pool="token"),
+    # unaligned SwiGLU hidden widths, which f32 runs unpadded
+    dict(mlp_hidden_dim=114),
+    dict(mlp_hidden_dim=58, scale_attn_inner=True, use_layer_scale=True, global_pool="token"),
 ])
 def test_logits_match_jax(variant, images):
     jcfg = dataclasses.replace(jeva.tiny_test_config(), **variant)
@@ -74,6 +79,27 @@ def test_logits_match_jax(variant, images):
     assert got.shape == (2, jcfg.num_classes)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     # the fixture is not degenerate: logits spread over O(1)
+    assert np.std(want) > 0.1
+
+
+@pytest.mark.parametrize("variant", [
+    dict(mlp_hidden_dim=114),
+    dict(mlp_hidden_dim=58, scale_attn_inner=True, use_layer_scale=True, global_pool="token"),
+])
+def test_padded_bf16_logits_match_jax(variant, images):
+    """In bf16 an unaligned SwiGLU runs padded (114 -> 120, 58 -> 64); its
+    logits stay within bf16 rounding of the JAX package's bf16 forward (0.03
+    of logits spread over 2.2-2.4 here), as the aligned width's do."""
+    jcfg = dataclasses.replace(jeva.tiny_test_config(), dtype=jnp.bfloat16, **variant)
+    params = perturb(jeva.init_params(jcfg, seed=0, use_pallas=False), 5)
+    want = np.asarray(jeva.forward_logits(params, jnp.asarray(images), jcfg, use_pallas=False),
+                      np.float32)
+    tcfg = dataclasses.replace(torch_cfg(jcfg), dtype=torch.bfloat16)
+    model = teva.Eva02(tcfg, device="cpu")
+    assert isinstance(model.blocks[0].mlp.w3, teva.PaddedLinear)
+    model.load_state_dict(from_jax_params(params, tcfg))
+    got = teva.forward_logits(model.eval(), torch.from_numpy(images)).float().numpy()
+    assert np.abs(got - want).max() <= 0.1
     assert np.std(want) > 0.1
 
 
@@ -161,3 +187,83 @@ def test_seeded_init_distributions():
     assert torch.all(a.blocks[0].norm1.weight == 1)
     assert a.pos_embed.abs().max().item() <= 0.04
     assert abs(a.pos_embed.std().item() - 0.02 * 0.8796) < 0.003
+
+
+def test_unaligned_hidden_is_padded_behind_the_published_layout(images):
+    """A bf16 hidden width off a multiple of 8 runs padded: zero pad rows and
+    columns, a state dict of the published shapes, one padded forward a block,
+    and a model saved and loaded again gives the same logits bit for bit."""
+    cfg = dataclasses.replace(teva.tiny_test_config(), mlp_hidden_dim=114, dtype=torch.bfloat16)
+    model = teva.Eva02(cfg).eval()
+    teva.init_params(model, seed=1)
+    mlp = model.blocks[0].mlp
+    assert (mlp.hidden, mlp.hidden_padded) == (114, teva.padded_hidden(cfg)) == (114, 120)
+    assert tuple(mlp.w1.weight.shape) == (120, 64) and tuple(mlp.w3.weight.shape) == (64, 120)
+    assert not mlp.w1.weight[114:].any() and not mlp.w1.bias[114:].any()
+    assert not mlp.w3.weight[:, 114:].any()
+    sd = model.state_dict()
+    for i in range(cfg.depth):
+        p = f"blocks.{i}.mlp"
+        assert tuple(sd[f"{p}.w1.weight"].shape) == tuple(sd[f"{p}.w2.weight"].shape) == (114, 64)
+        assert tuple(sd[f"{p}.w1.bias"].shape) == (114,)
+        assert tuple(sd[f"{p}.w3.weight"].shape) == (64, 114)
+    x = torch.from_numpy(images)
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        want = teva.forward_logits(model, x)
+    assert {k: v["count"] for k, v in profiling.recorded().items()} \
+        == {"swiglu.pad_114_to_120": cfg.depth}
+    buf = io.BytesIO()
+    torch.save(sd, buf)
+    buf.seek(0)
+    again = teva.Eva02(cfg)
+    again.load_state_dict(torch.load(buf))
+    assert torch.equal(teva.forward_logits(again.eval(), x), want)
+    assert not again.blocks[1].mlp.w2.weight[114:].any()
+
+
+def test_padded_init_draws_the_unpadded_bits(images, monkeypatch):
+    """init_params draws the published shapes in the same order with the
+    same fan-in, so a padded model's state dict is the unpadded model's bit
+    for bit, and its logits agree to bf16 rounding."""
+    cfg = dataclasses.replace(teva.tiny_test_config(), mlp_hidden_dim=58, dtype=torch.bfloat16)
+    padded = teva.Eva02(cfg).eval()
+    teva.init_params(padded, seed=3)
+    assert isinstance(padded.blocks[0].mlp.w3, teva.PaddedLinear)
+    with monkeypatch.context() as m:
+        m.setattr(teva, "padded_hidden", lambda c: c.mlp_hidden_dim)
+        plain = teva.Eva02(cfg).eval()
+    assert type(plain.blocks[0].mlp.w3) is torch.nn.Linear
+    teva.init_params(plain, seed=3)
+    want, got = plain.state_dict(), padded.state_dict()
+    assert list(got) == list(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    x = torch.from_numpy(images)
+    np.testing.assert_allclose(teva.forward_logits(padded, x).float().numpy(),
+                               teva.forward_logits(plain, x).float().numpy(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("cfg", [
+    dataclasses.replace(teva.tiny_test_config(), dtype=torch.bfloat16),   # hidden 112
+    dataclasses.replace(teva.tiny_test_config(), mlp_hidden_dim=114),     # f32
+    dataclasses.replace(teva.tiny_test_config(), mlp_hidden_dim=114, quant="int8",
+                        dtype=torch.bfloat16),
+])
+def test_aligned_f32_or_int8_hidden_builds_no_padding(cfg, images):
+    """An aligned hidden width, and any width in f32, keeps plain nn.Linears
+    at the published shape; the int8 path keeps its own Int8Linears, which pad
+    their own operands."""
+    model = teva.Eva02(cfg).eval()
+    teva.init_params(model, seed=0)
+    mlp = model.blocks[0].mlp
+    assert mlp.hidden_padded == mlp.hidden == cfg.mlp_hidden_dim
+    assert not any(isinstance(m, teva.PaddedLinear) for m in model.modules())
+    if cfg.quant == "none":
+        hid = cfg.mlp_hidden_dim
+        assert type(mlp.w1) is torch.nn.Linear
+        assert tuple(mlp.w1.weight.shape) == (hid, 64) and tuple(mlp.w3.weight.shape) == (64, hid)
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        teva.forward_logits(model, torch.from_numpy(images))
+    assert profiling.recorded() == {}

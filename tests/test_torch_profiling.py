@@ -166,8 +166,8 @@ def test_run_depth1_order():
     pipeline.run_depth1([], None, None, None)
 
 
-def _tag_setup(tmp_cwd, monkeypatch):
-    model_dir = write_checkpoint(tmp_cwd / "ckpt", timm_state_dict(23))
+def _tag_setup(tmp_cwd, monkeypatch, hidden=112):
+    model_dir = write_checkpoint(tmp_cwd / "ckpt", timm_state_dict(23, hidden=hidden))
     os.makedirs("imgs")
     rng = np.random.RandomState(0)
     for i in range(3):
@@ -186,6 +186,23 @@ def test_tagging_profile_flag(tmp_cwd, monkeypatch, capsys):
     check_spans(events, TAG_SPANS, batches=2)
     out = capsys.readouterr().out
     assert all(f"span {name}: " in out for name in TAG_SPANS)
+    assert "span swiglu." not in out                # hidden 112 runs unpadded
+    with open("tags-wd-tagger.txt", encoding="utf-8") as f:
+        assert len(f.read().splitlines()) == 3
+
+
+def test_tagging_profile_counts_padded_swiglu_forwards(tmp_cwd, monkeypatch, capsys):
+    """A checkpoint with an unaligned SwiGLU hidden width (114) runs it padded
+    to 120: 2 batches x 2 blocks padded forwards, each a range inside a
+    launch range, counted in the summary."""
+    model_dir = _tag_setup(tmp_cwd, monkeypatch, hidden=114)
+    tagging.main(["--dir", "imgs", "--model-dir", model_dir, "--profile", "trace"],
+                 device="cpu")
+    assert "span swiglu.pad_114_to_120: 4 calls, " in capsys.readouterr().out
+    events = read_trace("trace")["traceEvents"]
+    padded = _ranges(events, profiling.PREFIX + "swiglu.pad_114_to_120")
+    launches = _ranges(events, profiling.PREFIX + "step.launch")
+    assert len(padded) == 4 and all(any(_inside(p, r) for r in launches) for p in padded)
     with open("tags-wd-tagger.txt", encoding="utf-8") as f:
         assert len(f.read().splitlines()) == 3
 
