@@ -1,4 +1,4 @@
-"""Tagging CLI — batched WD-EVA02 ViT tagging of an image directory, on the card.
+"""Tagging CLI — batched WD tagging (EVA02 or SwinV2) of an image directory, on the card.
 
 Port of the JAX package's cli/tagging.py:
 
@@ -6,8 +6,11 @@ Port of the JAX package's cli/tagging.py:
         [--model-dir M | --model-repo REPO_ID] [--batch-size N] [--decode-workers N]
         [--scaled-decode] [--profile DIR] [--data-parallel]
 
-``--model-repo`` fetches the checkpoint from the HuggingFace Hub into the model
-cache that the JAX package shares (models/hub.py, ``$AIIS_MODEL_CACHE``) on
+The checkpoint's keys choose the backbone: a ``--model-dir`` holding
+``wd-swinv2-tagger-v3``'s ``model.safetensors``, ``selected_tags.csv`` and
+``config.json`` runs SwinV2 with no other flag. ``--model-repo`` fetches the
+checkpoint from the HuggingFace Hub into the model cache that the JAX package
+shares (models/hub.py, ``$AIIS_MODEL_CACHE``) on
 first use; ``--model-dir`` wins over it, and it wins over ``$AIIS_MODEL_DIR``.
 A failed fetch raises: it never falls back to seeded weights.
 
@@ -117,7 +120,8 @@ def main(arg_str: list, device: DeviceLike = None) -> None:
     parser.add_argument(
         "--model-dir", default=None,
         help="local checkpoint dir with model.safetensors + selected_tags.csv "
-             "(from SmilingWolf/wd-eva02-large-tagger-v3); "
+             "(from SmilingWolf/wd-eva02-large-tagger-v3; a SwinV2 tagger such as "
+             "SmilingWolf/wd-swinv2-tagger-v3 also needs its config.json); "
              "defaults to $AIIS_MODEL_DIR, else random weights",
     )
     parser.add_argument(

@@ -11,13 +11,24 @@ map onto the class below (utils/pickles.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import TYPE_CHECKING, Tuple, Union
+
+if TYPE_CHECKING:
+    from .models.eva02 import Eva02Config
+    from .models.swinv2 import SwinV2Config
+
+
+# the backbone configs the tagger predictor takes (models/tagger.py); a
+# checkpoint's keys choose between them (models/weights.py)
+TaggerModelConfig = Union["Eva02Config", "SwinV2Config"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TaggerConfig:
     """WD ViT tagger stage (reference: tagging.py:45-59, 333)."""
 
+    # any WD v3 tagger repo of an EVA02 or SwinV2 backbone, e.g.
+    # SmilingWolf/wd-swinv2-tagger-v3
     model_repo: str = "SmilingWolf/wd-eva02-large-tagger-v3"
     extensions: Tuple[str, ...] = (".png", ".jpg", ".jpeg", ".PNG", ".JPG", ".JPEG")
     # The reference uses BATCH_SIZE=10 sized for an M1 GPU (tagging.py:49); the TPU path

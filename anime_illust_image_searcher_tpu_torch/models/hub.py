@@ -9,7 +9,10 @@ local model directory, downloading (and, for CCIP, converting) on first use.
 The cache is the JAX package's: ``$AIIS_MODEL_CACHE`` (default
 ``~/.cache/aiis-tpu/models``), one directory a repo under the same name and
 with the same files, so a directory fetched by either package is a cache hit
-for the other. ``huggingface_hub`` is imported only on a miss. Where it is
+for the other. A SwinV2 tagger repo also needs its ``config.json`` (its window
+and image size, ``models/weights.py``): after the snapshot of the two files,
+a directory whose weights are SwinV2's fetches it too, and a cached one is a
+hit only with it. ``huggingface_hub`` is imported only on a miss. Where it is
 missing or the network is not reachable, the fetch raises a ``RuntimeError``
 that names the offline route: the published files in a directory passed as
 ``--model-dir``.
@@ -27,10 +30,14 @@ DEFAULT_CCIP_REPO = "deepghs/ccip_onnx"
 DEFAULT_CCIP_MODEL = "ccip-caformer-24-randaug-pruned"
 
 TAGGER_FILES = ("model.safetensors", "selected_tags.csv")
+# fetched beside TAGGER_FILES where the weights are SwinV2's
+TAGGER_CONFIG = "config.json"
 CCIP_FILES = ("params.npz", "config.json")
 
 TAGGER_OFFLINE = ("put model.safetensors and selected_tags.csv from the repo in a "
                   "directory and pass --model-dir DIR instead")
+SWINV2_OFFLINE = ("put model.safetensors, selected_tags.csv and config.json from the repo "
+                  "in a directory and pass --model-dir DIR instead")
 CCIP_OFFLINE = ("run python -m anime_illust_image_searcher_tpu_torch.cli.convert_ccip "
                 "on a networked machine and pass --model-dir instead")
 
@@ -59,18 +66,39 @@ def fetch_tagger_repo(repo_id: str = DEFAULT_TAGGER_REPO,
     """Download the tagger's checkpoint files; returns a ``--model-dir``
     directory (model.safetensors + selected_tags.csv)."""
     dest = cache_dir or os.path.join(_cache_root(), repo_id.replace("/", "__"))
-    if _has_all(dest, TAGGER_FILES):
-        return dest
-    try:
-        from huggingface_hub import snapshot_download
+    if not _has_all(dest, TAGGER_FILES):
+        try:
+            from huggingface_hub import snapshot_download
 
-        snapshot_download(repo_id, local_dir=dest, allow_patterns=list(TAGGER_FILES))
-    except Exception as e:  # noqa: BLE001 — any hub or network failure
-        raise _offline_error(repo_id, TAGGER_OFFLINE, e) from e
-    missing = [f for f in TAGGER_FILES if not os.path.exists(os.path.join(dest, f))]
-    if missing:
-        raise RuntimeError(f"{repo_id} snapshot is missing {missing}")
+            snapshot_download(repo_id, local_dir=dest, allow_patterns=list(TAGGER_FILES))
+        except Exception as e:  # noqa: BLE001 — any hub or network failure
+            raise _offline_error(repo_id, TAGGER_OFFLINE, e) from e
+        missing = [f for f in TAGGER_FILES if not os.path.exists(os.path.join(dest, f))]
+        if missing:
+            raise RuntimeError(f"{repo_id} snapshot is missing {missing}")
+    if not _has_all(dest, (TAGGER_CONFIG,)) and _holds_swinv2(dest):
+        try:
+            from huggingface_hub import hf_hub_download
+
+            hf_hub_download(repo_id, TAGGER_CONFIG, local_dir=dest)
+        except Exception as e:  # noqa: BLE001 — any hub or network failure
+            raise _offline_error(repo_id, SWINV2_OFFLINE, e) from e
     return dest
+
+
+def _holds_swinv2(directory: str) -> bool:
+    """Whether the directory's model.safetensors holds SwinV2's attention
+    (read from its header alone). A header that cannot be read is no
+    SwinV2's: the checkpoint's loader reports what is wrong with it."""
+    import struct
+
+    from .weights import is_swinv2_state_dict, read_safetensors_header
+
+    try:
+        header = read_safetensors_header(os.path.join(directory, "model.safetensors"))
+    except (OSError, ValueError, struct.error):
+        return False
+    return is_swinv2_state_dict(header)
 
 
 def _read_threshold(repo_id: str, path: str) -> float:

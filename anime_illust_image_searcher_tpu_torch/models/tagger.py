@@ -1,5 +1,10 @@
 """The WD tagger predictor: batched ViT forward + MCut thresholding + CSV assembly.
 
+The backbone is EVA02 (``models/eva02.py``, the default and the JAX package's
+one) or SwinV2 (``models/swinv2.py``), chosen by the model config's type: an
+explicit ``model_cfg``, or the one ``models/weights.load_tagger_checkpoint``
+detects from a checkpoint's keys. Everything around the forward is shared.
+
 Port of the JAX package's models/tagger.py:
   - preprocessing (scale, normalize, RGB→BGR swap) runs on the device before the
     forward, so the host only ships uint8 pixels;
@@ -25,18 +30,32 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import TaggerConfig
+from ..config import TaggerConfig, TaggerModelConfig
 from ..device import DeviceLike
 from ..ops.mcut import mcut_threshold_batch
 from ..parallel.mesh import (
     Mesh, device_scope, gather_rows, predictor_mesh, replicate, shard_rows,
 )
 from ..utils.profiling import span
-from .eva02 import Eva02, Eva02Config, init_params
+from . import eva02, swinv2
+from .eva02 import Eva02Config
+from .swinv2 import SwinV2Config
 from .weights import LabelSet, load_tagger_checkpoint
 
 
-def _predict_probs(model: Eva02, images_u8: torch.Tensor, mean: torch.Tensor,
+def build_backbone(cfg: TaggerModelConfig, device=None) -> torch.nn.Module:
+    """The backbone of ``cfg``'s type, with its parameters not yet set."""
+    if isinstance(cfg, SwinV2Config):
+        return swinv2.SwinV2(cfg, device=device)
+    return eva02.Eva02(cfg, device=device)
+
+
+def init_backbone(model: torch.nn.Module, seed: int = 0) -> None:
+    """Seeded weights for either backbone."""
+    (swinv2.init_params if isinstance(model, swinv2.SwinV2) else eva02.init_params)(model, seed)
+
+
+def _predict_probs(model: torch.nn.Module, images_u8: torch.Tensor, mean: torch.Tensor,
                    std: torch.Tensor) -> torch.Tensor:
     """Preprocess + forward + sigmoid. images_u8: (B, S, S, 3) uint8 RGB, already
     resized. Returns (B, num_classes) f32."""
@@ -72,15 +91,19 @@ class TaggerPredictor:
         self,
         config: TaggerConfig = TaggerConfig(),
         model_dir: Optional[str] = None,
-        model_cfg: Optional[Eva02Config] = None,
+        model_cfg: Optional[TaggerModelConfig] = None,
         device: DeviceLike = None,
         mesh: Optional[Mesh] = None,
     ) -> None:
         """``device``: ``None``/``"cuda"`` (default) or ``"cpu"``; CUDA without a
         card raises. ``model_dir`` defaults to ``$AIIS_MODEL_DIR``; without one
         the model gets seeded random weights and synthetic labels.
+        ``model_cfg``: an ``Eva02Config`` or a ``SwinV2Config``; with a
+        ``model_dir`` the checkpoint's keys choose the backbone and this
+        config seeds the detection (its dtype, and EVA02's head count).
         ``AIIS_INT8=1`` sets ``config.quant`` to ``"int8"``, and a quant request
-        reaches the model whatever ``model_cfg`` says.
+        reaches the model whatever ``model_cfg`` says (a SwinV2 model refuses
+        it).
 
         ``mesh``: batches shard over its data axis and the model is replicated
         on each of its distinct devices (the first of them is the predictor's
@@ -98,7 +121,7 @@ class TaggerPredictor:
         self.config = config
         self.model_dir = model_dir or os.environ.get("AIIS_MODEL_DIR") or None
         self._model_cfg = model_cfg
-        self.model: Optional[Eva02] = None
+        self.model: Optional[torch.nn.Module] = None
         self.labels: Optional[LabelSet] = None
 
     def load_model(self) -> None:
@@ -119,7 +142,7 @@ class TaggerPredictor:
             # f32 weights as they load them
             model_cfg = dataclasses.replace(model_cfg, quant=self.config.quant)
         self.model_cfg = model_cfg
-        model = Eva02(model_cfg, device=self.device)
+        model = build_backbone(model_cfg, device=self.device)
         if state is not None:
             model.load_state_dict(state)
         else:
@@ -127,7 +150,7 @@ class TaggerPredictor:
                 "WARNING: no --model-dir given; using seeded RANDOM weights and "
                 "synthetic labels. Output format is real, tag semantics are not."
             )
-            init_params(model, seed=0)
+            init_backbone(model, seed=0)
             self.labels = LabelSet.synthetic(model_cfg.num_classes)
         self.model = model.eval().requires_grad_(False)
         self._finalize_load()
@@ -143,7 +166,8 @@ class TaggerPredictor:
         )
 
     def _finalize_load(self) -> None:
-        models = replicate(self.model, self.mesh, lambda dev: Eva02(self.model_cfg, device=dev))
+        models = replicate(self.model, self.mesh,
+                           lambda dev: build_backbone(self.model_cfg, device=dev))
         self._replicas = {dev: (m, *self._device_consts(dev)) for dev, m in models.items()}
         self._general_names = [self.labels.names[i] for i in self.labels.general_index]
         self._character_names = [self.labels.names[i] for i in self.labels.character_index]

@@ -1,4 +1,5 @@
-"""Weight loading (timm checkpoint or JAX param tree -> the port's Eva02) and labels.
+"""Weight loading (timm checkpoint or JAX param tree -> the port's Eva02 or
+SwinV2) and labels.
 
 Port of the JAX package's models/weights.py. A local checkpoint directory holds
 
@@ -10,6 +11,16 @@ Port of the JAX package's models/weights.py. A local checkpoint directory holds
 port does not depend on the ``safetensors`` package. Only split q/k/v projections are
 supported; a fused-qkv checkpoint is refused rather than guessed at. The q/k
 projections get the rope half-split column permutation (models/eva02.py).
+
+A checkpoint whose keys hold SwinV2's attention (``layers.{s}.blocks.{j}.attn.
+cpb_mlp.*``, ``logit_scale``, ``q_bias``/``v_bias``, ``qkv``) is the WD SwinV2
+tagger's timm layout (``models/swinv2.py``). Its window and image sizes are not
+in the weights: they come from the directory's ``config.json`` (``model_args``,
+as timm's hub config writes them), and a SwinV2 checkpoint without them is
+refused. The heads of each stage are read from its ``logit_scale`` rows;
+timm's non-persistent buffers (``relative_coords_table``,
+``relative_position_index``, ``attn_mask``, ``k_bias``), where a file holds
+them, are dropped.
 
 ``from_jax_params`` turns the JAX package's param tree (as numpy arrays) into
 this package's state dict, so both packages can run one set of weights.
@@ -31,7 +42,9 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import TaggerModelConfig
 from .eva02 import Eva02Config, rope_half_permutation
+from .swinv2 import SwinV2, SwinV2Config
 
 
 @dataclasses.dataclass
@@ -88,6 +101,14 @@ class LabelSet:
 # ------------------------------------------------------------- safetensors
 
 _SAFETENSORS_DTYPES = {"F32": "<f4", "F16": "<f2", "BF16": "<u2"}
+
+
+def read_safetensors_header(path: str) -> dict:
+    """The JSON header of a .safetensors file: {name: {dtype, shape,
+    data_offsets}} (and ``__metadata__`` where it has one)."""
+    with open(path, "rb") as f:
+        (header_len,) = struct.unpack("<Q", f.read(8))
+        return json.loads(f.read(header_len))
 
 
 def read_safetensors(path: str) -> Dict[str, np.ndarray]:
@@ -315,16 +336,89 @@ def _validate_shapes(sd: Mapping[str, torch.Tensor], cfg: Eva02Config) -> None:
             raise ValueError(f"shape mismatch for {key}: got {got}, want {want}")
 
 
-def load_tagger_checkpoint(
-    model_dir: str, base: Optional[Eva02Config] = None,
-) -> Tuple[Dict[str, torch.Tensor], Eva02Config, LabelSet]:
-    """Load state dict + config + labels from a local checkpoint directory.
+# timm SwinV2 buffers that a file may hold and the port rebuilds (or, for
+# k_bias, folds into its qkv bias)
+SWINV2_BUFFERS = ("relative_coords_table", "relative_position_index", "attn_mask", "k_bias")
+MODEL_ARGS = ("img_size", "window_size")
 
-    ``base``: optional config whose num_heads/img_size/dtype seed detection —
-    needed for geometries outside the published EVA02 sizes."""
+
+def is_swinv2_state_dict(sd: Mapping[str, np.ndarray]) -> bool:
+    return any(k.endswith(".attn.cpb_mlp.0.weight") for k in sd)
+
+
+def read_model_args(model_dir: str) -> dict:
+    """``model_args`` of the directory's ``config.json``, or {} without one."""
+    path = os.path.join(model_dir, "config.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path, encoding="utf-8") as f:
+        return dict(json.load(f).get("model_args") or {})
+
+
+def detect_swinv2_config(sd: Mapping[str, np.ndarray], model_args: Mapping,
+                         base: Optional[TaggerModelConfig] = None) -> SwinV2Config:
+    """A timm SwinV2 state dict's geometry: widths and depths from its shapes,
+    heads from each stage's ``logit_scale``, window and image size from
+    ``model_args``; the dtype (and a SwinV2 base's eps) from ``base``."""
+    missing = [k for k in MODEL_ARGS if k not in model_args]
+    if missing:
+        raise ValueError(
+            f"SwinV2 checkpoint without {' and '.join(missing)}: the window and image "
+            "sizes are not in the weights; put the repo's config.json (its model_args) "
+            "beside model.safetensors")
+    stages = sorted({int(k.split(".")[1]) for k in sd if k.startswith("layers.")})
+    if stages != list(range(len(stages))):
+        raise ValueError(f"SwinV2 checkpoint with stages {stages}")
+    embed_dim, _, patch, _ = sd["patch_embed.proj.weight"].shape
+    depths = tuple(1 + max(int(k.split(".")[3]) for k in sd
+                           if k.startswith(f"layers.{s}.blocks.")) for s in stages)
+    return SwinV2Config(
+        img_size=int(model_args["img_size"]), patch_size=int(patch), embed_dim=int(embed_dim),
+        depths=depths,
+        num_heads=tuple(int(sd[f"layers.{s}.blocks.0.attn.logit_scale"].shape[0])
+                        for s in stages),
+        window_size=int(model_args["window_size"]),
+        mlp_ratio=sd["layers.0.blocks.0.mlp.fc1.weight"].shape[0] / embed_dim,
+        cpb_hidden=int(sd["layers.0.blocks.0.attn.cpb_mlp.0.weight"].shape[0]),
+        num_classes=int(sd["head.fc.weight"].shape[0]),
+        layer_norm_eps=base.layer_norm_eps if isinstance(base, SwinV2Config) else 1e-5,
+        dtype=base.dtype if base is not None else torch.bfloat16)
+
+
+def swinv2_state_dict(sd: Mapping[str, np.ndarray], cfg: SwinV2Config) -> Dict[str, torch.Tensor]:
+    """timm SwinV2 state dict -> the port's (the same names, f32 tensors),
+    every key and shape held to the model that ``cfg`` builds."""
+    sd = {k: v for k, v in sd.items() if k.split(".")[-1] not in SWINV2_BUFFERS}
+    want = {k: tuple(v.shape) for k, v in SwinV2(cfg, device="meta").state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in sd.items()}
+    if got != want:
+        extra, lost = sorted(set(got) - set(want)), sorted(set(want) - set(got))
+        wrong = sorted(k for k in set(got) & set(want) if got[k] != want[k])
+        raise ValueError(f"SwinV2 checkpoint does not match {cfg}: unexpected keys "
+                         f"{extra[:5]}, missing keys {lost[:5]}, shape mismatches "
+                         f"{[(k, got[k], want[k]) for k in wrong[:5]]}")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def load_tagger_checkpoint(
+    model_dir: str, base: Optional[TaggerModelConfig] = None,
+) -> Tuple[Dict[str, torch.Tensor], TaggerModelConfig, LabelSet]:
+    """Load state dict + config + labels from a local checkpoint directory.
+    The keys choose the backbone: SwinV2 (with ``config.json``'s
+    ``model_args``) or EVA02.
+
+    ``base``: optional config whose dtype (EVA02: also num_heads/img_size)
+    seeds detection — needed for geometries outside the published EVA02
+    sizes."""
     sd = load_timm_state_dict(model_dir)
-    cfg = detect_config_from_state_dict(sd, base=base)
-    state = state_dict_from_timm(sd, cfg)
+    if is_swinv2_state_dict(sd):
+        cfg = detect_swinv2_config(sd, read_model_args(model_dir), base)
+        state = swinv2_state_dict(sd, cfg)
+    else:
+        if base is not None and not isinstance(base, Eva02Config):
+            base = Eva02Config(dtype=base.dtype)
+        cfg = detect_config_from_state_dict(sd, base=base)
+        state = state_dict_from_timm(sd, cfg)
     labels = LabelSet.from_csv(os.path.join(model_dir, "selected_tags.csv"))
     if len(labels.names) != cfg.num_classes:
         raise ValueError(

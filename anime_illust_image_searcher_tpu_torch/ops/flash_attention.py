@@ -27,7 +27,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, window_attention
 
 KERNEL = "flash_attention"          # bf16
 KERNEL_F32 = "flash_attention_f32"
@@ -104,10 +104,12 @@ def _kernel(dtype: torch.dtype):
 
 
 def reset_launches() -> None:
-    """Set each head dim's launch count of both kernels to 0."""
+    """Set each head dim's launch count of both kernels to 0, and clear
+    SwinV2's window attention count (``window_attention.launches``)."""
     with _lock:
         mha_attention.launches = dict.fromkeys(HEAD_DIMS, 0)
         mha_attention.launches_f32 = dict.fromkeys(HEAD_DIMS, 0)
+    window_attention.reset_launches()
 
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

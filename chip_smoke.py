@@ -22,6 +22,14 @@ of JAX or of the JAX package. Every phase is fatal on failure:
                the tensor cores (the kernel's design, the bound it is held to)
                and as FFMA, at the EVA02-L layer (B=32) and the CAFormer-24
                stage 3 and 4 layers (B=64);
+ 2d. swinv2  — SwinV2-B's hand kernels (csrc/window_shift.cu's shift-and-
+               partition and its inverse, csrc/window_qkv.cu's q/k/v
+               preparation) at stages 1-3, bf16, B=256: torch.equal to
+               torch.roll + the permute copies, and the preparation within
+               one bf16 rounding of ``unit_qkv_reference`` (v bit-equal);
+               each timed beside its plain route and its bytes' bound; then
+               one full-width SwinV2-B forward at B=256 through
+               TaggerPredictor with the launch counts read around it;
   3. parity  — a full-width, depth-2 EVA02 with one set of seeded weights: the
                card (bf16, kernel) against the CPU (f32, plain), probabilities
                within 2e-2;
@@ -285,7 +293,10 @@ matvecs launch for each full-diffs dispatch, and one of each a shard for each
 served dispatch. Phase 20's archive process sets every count to 0 before each
 CLI run and reads it after; phase 21 sets the attention counts to 0 before
 each CLI run and reads them after (24 Dh=64 launches a tagger forward, 18
-Dh=32 launches a CAFormer forward).
+Dh=32 launches a CAFormer forward). Phase 2d sets the SwinV2 counts
+(``window_shift.launches``, ``unit_qkv.launches``, ``window_attention.launches``)
+to 0 before its B=256 forward and reads them after: 22 partitions, 22 inverses,
+24 q/k/v preparations and 24 attention calls at Dh=32.
 The last two lines are a ``kernels`` JSON object and the device line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no result.
 """
@@ -594,6 +605,123 @@ def phase_kernels_f32(torch, fa, gen, sm_ghz) -> list:
                             library_ms=r["sdpa_ms"], passes=r["passes"],
                             share_of_bound=r["share_of_bound"], ffma_bound_ms=r["ffma_bound_ms"],
                             share_of_ffma_bound=r["share_of_ffma_bound"]))
+    return entries
+
+
+SWIN_STAGES = ((112, 128, 4), (56, 256, 8), (28, 512, 16))   # SwinV2-B stages 1-3: side, C, H
+SWIN_WINDOW, SWIN_SHIFT, SWIN_BATCH = 14, 7, 256
+
+
+def roll_partition(torch, x, w, shift):
+    """The plain route of ``window_partition``: torch.roll and a permute copy."""
+    b, r, _, c = x.shape
+    y = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+    return y.view(b, r // w, w, r // w, w, c).permute(0, 1, 3, 2, 4, 5).reshape(
+        b, (r // w) ** 2, w * w, c)
+
+
+def roll_reverse(torch, y, r, w, shift):
+    """The plain route of ``window_reverse``: a permute copy and torch.roll."""
+    b, _, _, c = y.shape
+    x = y.view(b, r // w, r // w, w, w, c).permute(0, 1, 3, 2, 4, 5).reshape(b, r, r, c)
+    return torch.roll(x, (shift, shift), (1, 2)) if shift else x
+
+
+def phase_swinv2_kernels(torch, window_shift, wa, swinv2, tagger_mod, gen) -> list:
+    """Phase 2d: SwinV2-B's three hand kernels at stages 1-3, bf16, B=256, the
+    shapes its forward gives them. The shift-and-partition and its inverse
+    torch.equal to ``roll_partition``/``roll_reverse`` (and to their input
+    after the round trip); the q/k/v preparation's v bit-equal to
+    ``unit_qkv_reference`` and its unit q (logit scales up to 100 folded in)
+    and k within one bf16 rounding (2^-7 of the value). Each timed beside its
+    plain route and its bound, the bytes it reads and writes once at
+    PEAK_BYTES. Then one full-width SwinV2-B forward at B=256 on seeded
+    weights through ``TaggerPredictor``, with every launch count set to 0
+    just before it: 22 partitions, 22 inverses (the shifted and unshifted
+    blocks of stages 1-3; stage 4 is one window, a view) and 24 q/k/v
+    preparations. Returns the three ``kernels`` entries, each timed at stage
+    1 with the other stages under ``shapes``."""
+    bf16, w, shift = torch.bfloat16, SWIN_WINDOW, SWIN_SHIFT
+    rel = 2.0 ** -7
+    names = ("window_shift_partition", "window_shift_reverse", "window_qkv_unit")
+    shapes = {n: {} for n in names}
+    max_err = dict.fromkeys(names, 0.0)
+    for res, c, heads in SWIN_STAGES:
+        label = f"B={SWIN_BATCH} R={res} C={c}"
+        x = torch.randn(SWIN_BATCH, res, res, c, generator=gen, device=DEV).to(bf16)
+        part = window_shift.window_partition(x, w, shift)
+        check(torch.equal(part, roll_partition(torch, x, w, shift)),
+              f"window_shift_partition differs from roll + partition at {label}")
+        check(torch.equal(window_shift.window_reverse(part, res, w, shift), x),
+              f"window_shift_reverse does not restore its input at {label}")
+        check(torch.equal(window_shift.window_reverse(part, res, w, shift),
+                          roll_reverse(torch, part, res, w, shift)),
+              f"window_shift_reverse differs from the permute + roll at {label}")
+        n_win = (res // w) ** 2
+        qkv = torch.randn(SWIN_BATCH, n_win, w * w, 3 * c, generator=gen, device=DEV).to(bf16)
+        scale = torch.exp(torch.linspace(0.5, 4.6, heads, device=DEV))
+        got, want = wa.unit_qkv(qkv, scale, heads), wa.unit_qkv_reference(qkv, scale, heads)
+        check(torch.equal(got[2], want[2]), f"window_qkv_unit's v differs at {label}")
+        for a, b in zip(got[:2], want[:2]):
+            err = ((a.float() - b.float()).abs() - rel * b.float().abs()).max().item()
+            check(err <= 1e-30, f"window_qkv_unit's q or k off by {err} beyond one bf16 "
+                                f"rounding at {label}")
+            max_err[names[2]] = max(max_err[names[2]], (a.float() - b.float()).abs().max().item())
+        del got, want
+        move = 2 * x.numel() * x.element_size()               # read once, write once
+        rows = ((names[0], move, lambda: window_shift.window_partition(x, w, shift),
+                 lambda: roll_partition(torch, x, w, shift)),
+                (names[1], move, lambda: window_shift.window_reverse(part, res, w, shift),
+                 lambda: roll_reverse(torch, part, res, w, shift)),
+                (names[2], 3 * move, lambda: wa.unit_qkv(qkv, scale, heads),
+                 lambda: wa.unit_qkv_reference(qkv, scale, heads)))
+        for name, nbytes, kernel, plain in rows:
+            ms = cuda_ms(kernel, iters=20)
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            shapes[name][f"R={res}"] = dict(C=c, ms=ms, plain_ms=cuda_ms(plain, iters=5),
+                                            bound_ms=bound_ms, share_of_bound=bound_ms / ms,
+                                            gbytes=nbytes / 1e9)
+        del x, part, qkv
+    torch.cuda.empty_cache()
+
+    # the launch counts of one full-width forward at B=256
+    cfg = swinv2.SwinV2Config(dtype=bf16)
+    pred = tagger_mod.TaggerPredictor(model_cfg=cfg, device=DEV)
+    pred.load_model()
+    imgs = torch.randint(0, 256, (SWIN_BATCH, cfg.img_size, cfg.img_size, 3), generator=gen,
+                         device=DEV, dtype=torch.uint8)
+    pred.predict_probs(imgs)                          # first calls outside the count
+    window_shift.reset_launches()
+    wa.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    probs = pred.predict_probs(imgs)
+    end.record()
+    torch.cuda.synchronize()
+    forward_ms = start.elapsed_time(end)
+    check(np.isfinite(probs).all(), "non-finite SwinV2-B probabilities")
+    launches = {names[0]: window_shift.launches["partition"],
+                names[1]: window_shift.launches["reverse"], names[2]: wa.unit_qkv.launches}
+    check(launches == {names[0]: 22, names[1]: 22, names[2]: 24}
+          and wa.window_attention.launches == {32: 24},
+          f"one SwinV2-B forward launched {launches}, attention "
+          f"{wa.window_attention.launches}; expected 22, 22, 24 and 24 at Dh=32")
+    del pred, imgs, probs
+    torch.cuda.empty_cache()
+    print("kernel swinv2 " + json.dumps(dict(forward_ms_b256=forward_ms, launches=launches,
+                                             **shapes)), flush=True)
+    sources = ("window_shift.cu", "window_shift.cu", "window_qkv.cu")
+    plain = ("torch.roll + permute copy", "permute copy + torch.roll", "unit_qkv_reference")
+    entries = []
+    for name, src, route in zip(names, sources, plain):
+        r = shapes[name][f"R={SWIN_STAGES[0][0]}"]
+        entries.append(dict(name=name, route="cuda",
+                            source=f"anime_illust_image_searcher_tpu_torch/csrc/{src}",
+                            replaces=f"the plain route ({route}); no TPU kernel",
+                            launches=launches[name], max_abs_err=max_err[name], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
+                            library_ms=None, share_of_bound=r["share_of_bound"],
+                            shapes=shapes[name]))
     return entries
 
 
@@ -5010,6 +5138,8 @@ def main() -> None:
         from anime_illust_image_searcher_tpu_torch.utils import prng
         from anime_illust_image_searcher_tpu_torch.data import ingest, native_ingest
         from anime_illust_image_searcher_tpu_torch.ops import quant
+        from anime_illust_image_searcher_tpu_torch.models import swinv2
+        from anime_illust_image_searcher_tpu_torch.ops import window_attention, window_shift
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
 
@@ -5022,7 +5152,8 @@ def main() -> None:
 
     # 1. build every kernel of the path (one nvcc per source, started together)
     t0 = time.perf_counter()
-    _build.build([fa.KERNEL, fa.KERNEL_F32, qs.KERNEL])
+    _build.build([fa.KERNEL, fa.KERNEL_F32, qs.KERNEL, window_shift.KERNEL,
+                  window_attention.KERNEL])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
@@ -5035,6 +5166,10 @@ def main() -> None:
     # 2c. the f32 attention kernel at head dims 64 and 32 (its entries join
     # the kernels line last)
     f32_kernels = phase_kernels_f32(torch, fa, gen, sm_ghz)
+    # 2d. SwinV2-B's hand kernels at its stages' shapes, and their launches in
+    # one of its forwards (their entries join the kernels line after the f32 ones)
+    swin_kernels = phase_swinv2_kernels(torch, window_shift, window_attention, swinv2,
+                                        tagger_mod, gen)
 
     # 3 + 3b. the model on the card against the model on the CPU, bf16 and f32
     phase_parity(torch, eva02, tagger_mod)
@@ -5270,13 +5405,15 @@ def main() -> None:
                                     for k in ("model_dir", "model_repo", "cache_hit"))
           + f" s, gen_cfeatures --model-repo {hub_res['ccip']['cli_s']:.1f} s; on {smi}",
           flush=True)
-    kernels += f32_kernels
+    kernels += f32_kernels + swin_kernels
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the f32 entries also carry their pass count, the FFMA bound and both shares
     # and matvecs the old route's time beside its own
-    extra = ("passes", "share_of_bound", "ffma_bound_ms", "share_of_ffma_bound", "old_route_ms")
+    # and the SwinV2 kernels their times at each stage
+    extra = ("passes", "share_of_bound", "ffma_bound_ms", "share_of_ffma_bound", "old_route_ms",
+             "shapes")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in keys or k in kern}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
