@@ -49,7 +49,7 @@ from ..index import artifacts
 from ..index.similarity import SimilarityIndex
 from ..models.ccip import CCIPPredictor
 from ..models.hub import fetch_ccip_repo
-from ..parallel.mesh import DATA_AXIS, data_parallel_batch, local_mesh
+from ..parallel.mesh import DATA_AXIS, data_parallel_batch, local_mesh, uploads
 from ..utils.pipeline import run_depth1
 from ..utils.profiling import span, trace
 from ..utils.progress import ProgressMeter
@@ -187,7 +187,7 @@ def main(arg_str: list, device: DeviceLike = None) -> None:
         print(f"ccip model converted to {model_dir}")
 
     predictor = Predictor(config=cfg, model_dir=model_dir, device=device, mesh=mesh)
-    with trace(args.profile):
+    with trace(args.profile, counters={"uploads": uploads}):
         predictor.process_directory(args.dir[0], after_date)
 
 

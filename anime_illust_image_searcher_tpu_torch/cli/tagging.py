@@ -50,7 +50,7 @@ from ..device import DeviceLike
 from ..index import artifacts
 from ..models.hub import fetch_tagger_repo
 from ..models.tagger import TaggerPredictor
-from ..parallel.mesh import DATA_AXIS, data_parallel_batch, local_mesh
+from ..parallel.mesh import DATA_AXIS, data_parallel_batch, local_mesh, uploads
 from ..utils.pipeline import run_depth1
 from ..utils.profiling import trace
 from ..utils.progress import ProgressMeter
@@ -175,7 +175,7 @@ def main(arg_str: list, device: DeviceLike = None) -> None:
         print(f"model fetched to {model_dir}")
 
     predictor = Predictor(config=cfg, model_dir=model_dir, device=device, mesh=mesh)
-    with trace(args.profile):
+    with trace(args.profile, counters={"uploads": uploads}):
         predictor.process_directory(args.dir[0], after_date)
 
 

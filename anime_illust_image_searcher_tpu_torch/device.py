@@ -38,5 +38,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def to_device(arr, device: DeviceLike, dtype=None) -> torch.Tensor:
     """A tensor on ``device`` holding its own copy of the numpy array ``arr``
     (often a read-only memory map of an artifact, which torch must not
-    share)."""
+    share). On a card the copy goes up from pageable memory, which CUDA
+    stages piece by piece while the host waits: fine for an artifact loaded
+    once. A predictor's numpy batch takes ``parallel/mesh.PinnedStager``
+    instead, whose copy into a page-locked buffer is the batch's own copy and
+    goes up as one asynchronous DMA (``shard_rows``)."""
     return torch.from_numpy(np.array(arr, dtype=dtype, order="C", copy=True)).to(device)

@@ -39,7 +39,8 @@ import torch
 from ..config import CCIPConfig
 from ..device import DeviceLike, to_device
 from ..parallel.mesh import (
-    Mesh, device_scope, gather_rows, predictor_mesh, replicate, shard_rows,
+    Mesh, PinnedStager, device_scope, gather_rows, predictor_mesh, replicate,
+    shard_rows,
 )
 from ..utils.profiling import span
 from .caformer import (
@@ -79,6 +80,7 @@ class CCIPPredictor:
             "for multi-host extraction run gen_cfeatures per host on "
             "disjoint directories")
         self.device = self.mesh.devices[0]
+        self._stager = PinnedStager()
         self.model_dir = model_dir or os.environ.get("AIIS_CCIP_MODEL_DIR") or None
         self.config = config
         self.model_cfg = model_cfg or (
@@ -230,7 +232,7 @@ class CCIPPredictor:
         overlap; the features gathered in order on the first device."""
         feats = []
         with span("step.h2d"):
-            blocks = shard_rows(self.mesh, images_u8)
+            blocks = shard_rows(self.mesh, images_u8, self._stager)
         with span("step.launch"):
             for dev, x in zip(self.mesh.devices, blocks):
                 model, mean, std = self._replicas[dev]

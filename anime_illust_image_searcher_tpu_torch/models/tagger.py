@@ -18,7 +18,8 @@ Each batch is cut into one in-order row block per data shard of the
 predictor's mesh (parallel/mesh.py), each block runs on a replica of the model
 on its shard's device, and the outputs are gathered in order on the mesh's
 first device. Without a ``mesh`` the mesh is ``device`` alone: one block, the
-whole batch, and no copy.
+whole batch. A numpy batch goes up to a card through the predictor's
+page-locked staging ring (``parallel/mesh.PinnedStager``).
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from ..config import TaggerConfig, TaggerModelConfig
 from ..device import DeviceLike
 from ..ops.mcut import mcut_threshold_batch
 from ..parallel.mesh import (
-    Mesh, device_scope, gather_rows, predictor_mesh, replicate, shard_rows,
+    Mesh, PinnedStager, device_scope, gather_rows, predictor_mesh, replicate,
+    shard_rows,
 )
 from ..utils.profiling import span
 from . import eva02, swinv2
@@ -116,6 +118,7 @@ class TaggerPredictor:
             "for multi-host tagging run the CLI per host on disjoint "
             "directories and concatenate the tag files")
         self.device = self.mesh.devices[0]
+        self._stager = PinnedStager()
         if os.environ.get("AIIS_INT8", "0") == "1" and config.quant == "none":
             config = dataclasses.replace(config, quant="int8")
         self.config = config
@@ -189,7 +192,7 @@ class TaggerPredictor:
         outs = []
         with torch.inference_mode():
             with span("step.h2d"):
-                blocks = shard_rows(self.mesh, images_u8)
+                blocks = shard_rows(self.mesh, images_u8, self._stager)
             with span("step.launch"):
                 for dev, x in zip(self.mesh.devices, blocks):
                     model, general, character, mean, std = self._replicas[dev]

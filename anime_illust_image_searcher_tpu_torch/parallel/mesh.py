@@ -20,7 +20,9 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Callable, Dict, List, Optional, Sequence
+import threading
+import warnings
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -192,37 +194,118 @@ def device_scope(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-def _row_blocks(arr, n_blocks: int, first: int, devices: Sequence[torch.device]
-                ) -> List[torch.Tensor]:
-    """Blocks ``first`` .. of ``arr`` cut into ``n_blocks`` equal row blocks,
-    on ``devices``. A numpy block is copied (``arr`` is often a read-only
-    memory map); a tensor block is a view where it already lies on its
-    device, so one block of a tensor is the tensor's rows with no copy."""
+# shard_rows' row blocks by route: through a PinnedStager, or any other way
+uploads = {"pinned": 0, "pageable": 0}
+
+
+def reset_uploads() -> None:
+    for key in uploads:
+        uploads[key] = 0
+
+
+class PinnedStager:
+    """The page-locked host buffers through which ``shard_rows`` uploads a
+    numpy batch to a card: a ring of ``SLOTS`` buffers a card, each with the
+    event of the last DMA that read it. A block is copied into the next slot
+    (one ``copy_``, threaded for a large block) once that event is done, then
+    goes up as one ``non_blocking`` DMA on the card's current stream, after
+    which the event is recorded. So the host returns once its copy is made,
+    and a slot is never written while a DMA still reads it, however far the
+    caller lets the card run behind. A lock makes each upload whole, since a
+    server's threads may share a predictor.
+
+    A card's ring is allocated whole at its first block (a predictor's
+    warm-up batch) and again only for a larger block: a smaller one uses the
+    front of each slot. Each predictor owns one stager."""
+
+    SLOTS = 2
+
+    def __init__(self) -> None:
+        # card -> its slots: (flat uint8 buffer, event of the buffer's last DMA)
+        self._slots: Dict[torch.device, List[Tuple[torch.Tensor, torch.cuda.Event]]] = {}
+        self._turn: Dict[torch.device, int] = {}
+        self._lock = threading.Lock()
+
+    def upload(self, block: np.ndarray, dev: torch.device) -> torch.Tensor:
+        """``block`` on the card ``dev``, queued on its current stream."""
+        with warnings.catch_warnings():
+            # torch warns that it cannot keep a read-only array (a memory
+            # map) read-only; the copy below only reads it
+            warnings.simplefilter("ignore", UserWarning)
+            src = torch.from_numpy(block)
+        nbytes = src.numel() * src.element_size()
+        with self._lock:
+            slots = self._slots.get(dev)
+            if slots is None or slots[0][0].numel() < nbytes:
+                # normal tensors, not inference ones: the forwards run in
+                # inference mode and other callers do not. torch's host
+                # allocator holds a dropped buffer until the DMAs that read
+                # it are done.
+                with torch.inference_mode(False):
+                    slots = self._slots[dev] = [
+                        (torch.empty(nbytes, dtype=torch.uint8, pin_memory=True),
+                         torch.cuda.Event()) for _ in range(self.SLOTS)]
+            i = self._turn.get(dev, 0)
+            self._turn[dev] = (i + 1) % self.SLOTS
+            buf, done = slots[i]
+            done.synchronize()
+            staged = buf[:nbytes].view(src.dtype).view(src.shape)
+            staged.copy_(src)
+            out = staged.to(dev, non_blocking=True)
+            done.record(torch.cuda.current_stream(dev))
+        return out
+
+
+def _row_cut(arr, n_blocks: int, first: int, count: int) -> list:
+    """Blocks ``first`` .. ``first + count - 1`` of ``arr`` cut into
+    ``n_blocks`` equal row blocks, as views."""
     rows = arr.shape[0]
     if rows % n_blocks:
         raise ValueError(f"{rows} rows do not split into {n_blocks} equal shards; "
                          "pad the leading axis to a multiple first (pad_to_multiple)")
     m = rows // n_blocks
-    cut = [slice((first + i) * m, (first + i + 1) * m) for i in range(len(devices))]
-    if isinstance(arr, torch.Tensor):
-        return [arr[c].to(dev) for c, dev in zip(cut, devices)]
-    return [to_device(arr[c], dev) for c, dev in zip(cut, devices)]
+    return [arr[(first + i) * m:(first + i + 1) * m] for i in range(count)]
 
 
-def shard_rows(mesh: Mesh, arr) -> List[torch.Tensor]:
+def _put(block, dev: torch.device) -> torch.Tensor:
+    """``block`` on ``dev``: a tensor block is a view where it already lies
+    on its device; a numpy block is copied (``to_device``: the array is often
+    a read-only memory map)."""
+    if isinstance(block, torch.Tensor):
+        return block.to(dev)
+    return to_device(block, dev)
+
+
+def shard_rows(mesh: Mesh, arr, stager: Optional[PinnedStager] = None) -> List[torch.Tensor]:
     """The in-order row blocks of ``arr`` (a numpy array or a tensor), one per
     data shard, each on its shard's device. The leading axis must divide by
-    ``n_data``; otherwise this raises."""
-    return _row_blocks(arr, mesh.shape[DATA_AXIS], 0, mesh.devices)
+    ``n_data``; otherwise this raises.
+
+    A numpy block bound for a card, with a ``stager``, goes up through the
+    stager's page-locked ring as one asynchronous DMA: its copy into the ring
+    is the copy of its own that ``to_device`` would make, so a read-only
+    memory map stays safe, and it replaces ``to_device``'s two (a host copy,
+    then a pageable copy that CUDA stages piece by piece while the host
+    waits). Every other block (a CPU device, a tensor, no stager) is placed
+    as ``_put`` places it. ``uploads`` counts each block by its route."""
+    out = []
+    for block, dev in zip(_row_cut(arr, mesh.shape[DATA_AXIS], 0, len(mesh.devices)),
+                          mesh.devices):
+        pinned = stager is not None and dev.type == "cuda" and isinstance(block, np.ndarray)
+        uploads["pinned" if pinned else "pageable"] += 1
+        out.append(stager.upload(block, dev) if pinned else _put(block, dev))
+    return out
 
 
 def put_global(arr, mesh: Mesh) -> List[torch.Tensor]:
     """This process's shards of a host array that every process holds whole
     (artifacts load from shared storage): of ``world_size x n_data`` in-order
     row blocks, blocks ``rank x n_data`` .. ``rank x n_data + n_data - 1``,
-    each on its device. One process gets what ``shard_rows`` gives."""
+    each on its device. One process gets what ``shard_rows`` gives without a
+    stager."""
     n = mesh.shape[DATA_AXIS]
-    return _row_blocks(arr, mesh.world_size * n, mesh.rank * n, mesh.devices)
+    return [_put(block, dev) for block, dev in
+            zip(_row_cut(arr, mesh.world_size * n, mesh.rank * n, n), mesh.devices)]
 
 
 def pad_to_multiple(arr, multiple: int, axis: int = 0, value=0):

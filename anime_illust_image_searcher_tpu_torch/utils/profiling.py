@@ -86,10 +86,13 @@ def trace_path(directory: str) -> str:
 
 
 @contextlib.contextmanager
-def trace(directory: Optional[str] = None) -> Iterator[None]:
+def trace(directory: Optional[str] = None,
+          counters: Optional[Dict[str, Dict[str, int]]] = None) -> Iterator[None]:
     """Record the region into a Chrome trace in ``directory`` (no-op when None
-    and ``AIIS_PROFILE_DIR`` is unset), then print the spans it recorded.
-    CUDA activity is recorded when a card is present.
+    and ``AIIS_PROFILE_DIR`` is unset), then print the spans it recorded and
+    what the region added to each of ``counters`` (name -> a process-wide
+    count by key, such as ``parallel/mesh.uploads``). CUDA activity is
+    recorded when a card is present.
 
     A profiler that fails to start or to write never breaks the run, but an
     exception of the WRAPPED BODY propagates untouched."""
@@ -101,6 +104,7 @@ def trace(directory: Optional[str] = None) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     clear()
+    before = {name: dict(c) for name, c in (counters or {}).items()}
     prof = None
     try:
         os.makedirs(directory, exist_ok=True)
@@ -124,3 +128,6 @@ def trace(directory: Optional[str] = None) -> Iterator[None]:
                 print(f"span {name}: {r['count']} calls, {r['total_s']:.3f} s total, "
                       f"{1e3 * r['total_s'] / r['count']:.2f} ms mean, "
                       f"{1e3 * r['max_s']:.2f} ms max")
+            for name, c in (counters or {}).items():
+                print(f"counter {name}: " + ", ".join(
+                    f"{key} {n - before[name].get(key, 0)}" for key, n in c.items()))

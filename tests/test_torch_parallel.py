@@ -34,9 +34,10 @@ from anime_illust_image_searcher_tpu_torch.models.eva02 import tiny_test_config
 from anime_illust_image_searcher_tpu_torch.models.tagger import TaggerPredictor
 from anime_illust_image_searcher_tpu_torch.ops.fused_query import exact_top_k
 from anime_illust_image_searcher_tpu_torch.ops.query_scores import matvecs
+from anime_illust_image_searcher_tpu_torch.parallel import mesh as mesh_lib
 from anime_illust_image_searcher_tpu_torch.parallel.mesh import (
-    DATA_AXIS, MODEL_AXIS, data_parallel_batch, gather_rows, make_mesh, pad_to_multiple,
-    put_global, shard_rows,
+    DATA_AXIS, MODEL_AXIS, PinnedStager, data_parallel_batch, gather_rows, make_mesh,
+    pad_to_multiple, put_global, shard_rows,
 )
 from anime_illust_image_searcher_tpu_torch.parallel.sharded_index import (
     ShardedSimilarityIndex,
@@ -368,6 +369,78 @@ def test_put_global_and_shard_rows_single_process():
     mesh.rank, mesh.world_size = 1, 2
     blocks = put_global(arr, mesh)
     np.testing.assert_array_equal(torch.cat(blocks).numpy(), arr[8:])
+
+
+@pytest.mark.parametrize("n_data", [1, 2, 8])
+@pytest.mark.parametrize("stager", [None, PinnedStager()])
+def test_shard_rows_of_a_numpy_batch_on_the_cpu(n_data, stager):
+    """On a CPU mesh a numpy batch takes the pageable route, stager or not:
+    each block is the batch's rows in a copy of its own, and each block
+    counts once as pageable; the stager holds nothing."""
+    mesh = cpu_mesh(n_data)
+    arr = np.arange(16 * 3 * 2, dtype=np.uint8).reshape(16, 3, 2)
+    mesh_lib.reset_uploads()
+    blocks = shard_rows(mesh, arr, stager)
+    assert mesh_lib.uploads == {"pinned": 0, "pageable": n_data}
+    m = 16 // n_data
+    for i, b in enumerate(blocks):
+        assert b.device == CPU and b.dtype == torch.uint8
+        np.testing.assert_array_equal(b.numpy(), arr[i * m:(i + 1) * m])
+        assert not np.shares_memory(b.numpy(), arr)
+    assert stager is None or stager._slots == {}
+    shard_rows(mesh, arr, stager)
+    assert mesh_lib.uploads == {"pinned": 0, "pageable": 2 * n_data}
+    mesh_lib.reset_uploads()
+    assert mesh_lib.uploads == {"pinned": 0, "pageable": 0}
+
+
+@pytest.mark.parametrize("stager", [None, PinnedStager()])
+def test_shard_rows_of_a_read_only_memory_map(tmp_path, stager):
+    """A read-only memory map gives writable tensors that share no memory
+    with it; writing them leaves the file as it was."""
+    want = np.random.default_rng(4).integers(0, 256, (8, 5), dtype=np.uint8)
+    want.tofile(tmp_path / "rows.u8")
+    mm = np.memmap(tmp_path / "rows.u8", dtype=np.uint8, mode="r", shape=(8, 5))
+    assert not mm.flags.writeable
+    blocks = shard_rows(cpu_mesh(2), mm, stager)
+    for i, b in enumerate(blocks):
+        assert not np.shares_memory(b.numpy(), mm)
+        np.testing.assert_array_equal(b.numpy(), want[4 * i:4 * i + 4])
+        b.fill_(0)
+    np.testing.assert_array_equal(np.fromfile(tmp_path / "rows.u8", np.uint8).reshape(8, 5), want)
+
+
+@pytest.mark.parametrize("n_data", [1, 2])
+def test_shard_rows_of_a_tensor_takes_no_staging(n_data):
+    """A tensor batch is cut into views of its own rows on their device,
+    stager or not: nothing is staged, and each block counts as pageable."""
+    stager = PinnedStager()
+    x = torch.arange(24, dtype=torch.float32).reshape(8, 3)
+    mesh_lib.reset_uploads()
+    blocks = shard_rows(cpu_mesh(n_data), x, stager)
+    m = 8 // n_data
+    for i, b in enumerate(blocks):
+        assert b.data_ptr() == x[i * m].data_ptr() and torch.equal(b, x[i * m:(i + 1) * m])
+    assert stager._slots == {}
+    assert mesh_lib.uploads == {"pinned": 0, "pageable": n_data}
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_put_global_is_unchanged_and_counts_no_upload(rank):
+    """put_global keeps its blocks (a rank's in-order share, each a copy of
+    its own) and leaves the upload counter alone: it loads artifacts, not
+    batches."""
+    mesh = cpu_mesh(2)
+    mesh.rank, mesh.world_size = rank, 2
+    arr = np.arange(32, dtype=np.float32).reshape(8, 4)
+    mesh_lib.reset_uploads()
+    blocks = put_global(arr, mesh)
+    assert mesh_lib.uploads == {"pinned": 0, "pageable": 0}
+    assert len(blocks) == 2
+    for i, b in enumerate(blocks):
+        first = 2 * (2 * rank + i)
+        np.testing.assert_array_equal(b.numpy(), arr[first:first + 2])
+        assert not np.shares_memory(b.numpy(), arr)
 
 
 @pytest.mark.parametrize("kw, match", [

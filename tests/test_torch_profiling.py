@@ -187,6 +187,7 @@ def test_tagging_profile_flag(tmp_cwd, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert all(f"span {name}: " in out for name in TAG_SPANS)
     assert "span swiglu." not in out                # hidden 112 runs unpadded
+    assert "counter uploads: pinned 0, pageable 2\n" in out   # 2 batches on the CPU
     with open("tags-wd-tagger.txt", encoding="utf-8") as f:
         assert len(f.read().splitlines()) == 3
 
@@ -248,5 +249,6 @@ def test_gen_cfeatures_profile_flag(tmp_cwd, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert all(f"span {name}: " in out for name in CFEAT_SPANS)
     assert "span tagger.assemble" not in out
+    assert "counter uploads: pinned 0, pageable 2\n" in out
     with open(artifacts.CFEATURES_CSV, encoding="utf-8") as f:
         assert len(f.read().splitlines()) == 3
