@@ -21,10 +21,11 @@ torch ops on the predictor's device); a 1 - cosine graph keeps the fused ops;
 a graph that is not pairwise, does not convert, or whose analysis raises keeps
 1 - cosine with a WARNING, as the JAX package does.
 
-Feature batches shard over the data axis of the predictor's mesh
-(parallel/mesh.py) onto replicas of the encoder, as the tagger's do; without a
-``mesh`` the mesh is ``device`` alone. The rerank paths keep their small
-top-k batch whole on the mesh's first device.
+Feature batches shard over the data axis of the predictor's mesh onto
+replicas of the encoder through ``parallel/mesh.ReplicatedForward``, as the
+tagger's do; without a ``mesh`` the mesh is ``device`` alone. The rerank
+paths put their small top-k batch whole on the mesh's first device through
+the same object's upload.
 """
 
 from __future__ import annotations
@@ -38,11 +39,7 @@ import torch
 
 from ..config import CCIPConfig
 from ..device import DeviceLike, to_device
-from ..parallel.mesh import (
-    Mesh, PinnedStager, device_scope, gather_rows, predictor_mesh, replicate,
-    shard_rows,
-)
-from ..utils.profiling import span
+from ..parallel.mesh import Mesh, ReplicatedForward, predictor_mesh
 from .caformer import (
     CAFormer, CAFormerConfig, _rerank_diffs_from_rows, _valid_mean,
     ccip_batch_differences_op, ccip_differences_vs_index_op,
@@ -80,7 +77,6 @@ class CCIPPredictor:
             "for multi-host extraction run gen_cfeatures per host on "
             "disjoint directories")
         self.device = self.mesh.devices[0]
-        self._stager = PinnedStager()
         self.model_dir = model_dir or os.environ.get("AIIS_CCIP_MODEL_DIR") or None
         self.config = config
         self.model_cfg = model_cfg or (
@@ -88,14 +84,13 @@ class CCIPPredictor:
                 img_size=config.image_size, feature_dim=config.feature_dim))
         self.seed = seed
         self.model: Optional[CAFormer] = None
+        self.replicated: Optional[ReplicatedForward] = None
         # Working threshold, mutable like the reference Predictor's attribute
         # (get_image_feature's lazy default/1.5 write, gen_cfeatures.py:299).
         self.threshold: float = -1.0
         # The checkpoint's own threshold: the DEFAULT, kept apart from the
         # mutable working threshold so the lazy /1.5 write never compounds.
         self._checkpoint_threshold: Optional[float] = None
-        self._mean = torch.tensor(config.mean, dtype=torch.float32, device=self.device)
-        self._std = torch.tensor(config.std, dtype=torch.float32, device=self.device)
         # the learned metric, set lazily when the model dir ships a
         # model_metrics.onnx that is NOT 1 - cosine
         self._metric_fn = None
@@ -192,10 +187,10 @@ class CCIPPredictor:
         else:
             model.load_state_dict(state)
         self.model = model.eval().requires_grad_(False)
-        models = replicate(self.model, self.mesh,
-                           lambda dev: CAFormer(self.model_cfg, device=dev))
-        self._replicas = {dev: (m, self._mean.to(dev), self._std.to(dev))
-                          for dev, m in models.items()}
+        self.replicated = ReplicatedForward(
+            self.mesh, self.model, lambda dev: CAFormer(self.model_cfg, device=dev),
+            lambda dev: tuple(torch.tensor(v, dtype=torch.float32, device=dev)
+                              for v in (self.config.mean, self.config.std)))
 
     def uses_learned_metric(self) -> bool:
         """True when the checkpoint ships a converted non-cosine metric graph:
@@ -216,29 +211,18 @@ class CCIPPredictor:
 
     # ---- features ------------------------------------------------------------
 
-    def _images(self, images_u8: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(images_u8, dtype=np.uint8)).to(self.device)
-
     def ccip_extract_device(self, images_u8: np.ndarray) -> torch.Tensor:
         """Queue the feature forward WITHOUT a sync: gen_cfeatures' depth-1
         pipeline indexes batch N-1 on the host while the card runs batch N.
         Returns the (B, feature_dim) f32 tensor on the device."""
         self.load_model()
-        return self._forward(np.ascontiguousarray(images_u8, dtype=np.uint8))
+        return self._forward(images_u8)
 
     def _forward(self, images_u8) -> torch.Tensor:
-        """The forward over a uint8 array or tensor: each row block on its
-        device's replica with no sync between shards, so that distinct cards
-        overlap; the features gathered in order on the first device."""
-        feats = []
-        with span("step.h2d"):
-            blocks = shard_rows(self.mesh, images_u8, self._stager)
-        with span("step.launch"):
-            for dev, x in zip(self.mesh.devices, blocks):
-                model, mean, std = self._replicas[dev]
-                with device_scope(dev):
-                    feats.append(extract_features(model, x, mean, std))
-            return gather_rows(feats, self.device)
+        """The features of a uint8 array or tensor, from the replicas,
+        gathered in order on the first device."""
+        return self.replicated(
+            images_u8, lambda model, mean, std, x: (extract_features(model, x, mean, std),))[0]
 
     def ccip_batch_extract_features(self, images_u8: np.ndarray) -> np.ndarray:
         """(B, S, S, 3) uint8 RGB -> (B, feature_dim) f32."""
@@ -305,12 +289,13 @@ class CCIPPredictor:
         valid mean, then the vs-index metric."""
         self.load_model()
         valid = torch.arange(images_u8.shape[0], device=self.device) < n_valid
+        images = self.replicated.upload(images_u8)
         if self._metric_vs_index is not None:
-            feats = extract_features(self.model, self._images(images_u8), self._mean, self._std)
+            feats = extract_features(self.model, images, *self.replicated.consts)
             return self._metric_vs_index(index.device_matrix(),
                                          _valid_mean(feats, valid)).cpu().numpy()
-        return ccip_rerank_diffs_op(self.model, self._images(images_u8), valid,
-                                    self._mean, self._std, index.device_matrix()).cpu().numpy()
+        return ccip_rerank_diffs_op(self.model, images, valid, *self.replicated.consts,
+                                    index.device_matrix()).cpu().numpy()
 
     def _rows(self, row_ids: np.ndarray, n_valid) -> Tuple[torch.Tensor, torch.Tensor]:
         """Row ids on the device and the valid mask of their last dim: (k,) ids

@@ -18,8 +18,8 @@ Each batch is cut into one in-order row block per data shard of the
 predictor's mesh (parallel/mesh.py), each block runs on a replica of the model
 on its shard's device, and the outputs are gathered in order on the mesh's
 first device. Without a ``mesh`` the mesh is ``device`` alone: one block, the
-whole batch. A numpy batch goes up to a card through the predictor's
-page-locked staging ring (``parallel/mesh.PinnedStager``).
+whole batch. The replicas, the upload of a batch and the split, launch and
+gather are ``parallel/mesh.ReplicatedForward``'s, built at load.
 """
 
 from __future__ import annotations
@@ -34,10 +34,7 @@ import torch
 from ..config import TaggerConfig, TaggerModelConfig
 from ..device import DeviceLike
 from ..ops.mcut import mcut_threshold_batch
-from ..parallel.mesh import (
-    Mesh, PinnedStager, device_scope, gather_rows, predictor_mesh, replicate,
-    shard_rows,
-)
+from ..parallel.mesh import Mesh, ReplicatedForward, predictor_mesh
 from ..utils.profiling import span
 from . import eva02, swinv2
 from .eva02 import Eva02Config
@@ -118,7 +115,6 @@ class TaggerPredictor:
             "for multi-host tagging run the CLI per host on disjoint "
             "directories and concatenate the tag files")
         self.device = self.mesh.devices[0]
-        self._stager = PinnedStager()
         if os.environ.get("AIIS_INT8", "0") == "1" and config.quant == "none":
             config = dataclasses.replace(config, quant="int8")
         self.config = config
@@ -126,6 +122,7 @@ class TaggerPredictor:
         self._model_cfg = model_cfg
         self.model: Optional[torch.nn.Module] = None
         self.labels: Optional[LabelSet] = None
+        self.replicated: Optional[ReplicatedForward] = None
 
     def load_model(self) -> None:
         if self.model is not None:
@@ -156,27 +153,20 @@ class TaggerPredictor:
             init_backbone(model, seed=0)
             self.labels = LabelSet.synthetic(model_cfg.num_classes)
         self.model = model.eval().requires_grad_(False)
-        self._finalize_load()
-
-    def _device_consts(self, dev: torch.device) -> tuple:
-        """The label gathers and the mean/std on ``dev``."""
-        return (
-            torch.as_tensor(np.asarray(self.labels.general_index, np.int64), device=dev),
-            torch.as_tensor(np.asarray(self.labels.character_index, np.int64), device=dev),
-            # mean/std 0.5 is the WD-v3 timm data config
-            torch.tensor([0.5, 0.5, 0.5], dtype=torch.float32, device=dev),
-            torch.tensor([0.5, 0.5, 0.5], dtype=torch.float32, device=dev),
-        )
-
-    def _finalize_load(self) -> None:
-        models = replicate(self.model, self.mesh,
-                           lambda dev: build_backbone(self.model_cfg, device=dev))
-        self._replicas = {dev: (m, *self._device_consts(dev)) for dev, m in models.items()}
         self._general_names = [self.labels.names[i] for i in self.labels.general_index]
         self._character_names = [self.labels.names[i] for i in self.labels.character_index]
         # host-side gather indices, built once (finalize runs per batch)
         self._general_idx_np = np.asarray(self.labels.general_index, np.int64)
         self._character_idx_np = np.asarray(self.labels.character_index, np.int64)
+        self.replicated = ReplicatedForward(
+            self.mesh, self.model, lambda dev: build_backbone(self.model_cfg, device=dev),
+            lambda dev: (
+                torch.as_tensor(self._general_idx_np, device=dev),
+                torch.as_tensor(self._character_idx_np, device=dev),
+                # mean/std 0.5 is the WD-v3 timm data config
+                torch.tensor([0.5, 0.5, 0.5], dtype=torch.float32, device=dev),
+                torch.tensor([0.5, 0.5, 0.5], dtype=torch.float32, device=dev),
+            ))
 
     # ------------------------------------------------------------------ predict
 
@@ -185,24 +175,19 @@ class TaggerPredictor:
         return self._forward(images_u8, thresholds=False)[0].cpu().numpy()
 
     def _forward(self, images_u8, thresholds: bool) -> tuple:
-        """The forward over a uint8 array or tensor: each row block's
-        probabilities (and thresholds) queued on its device's replica with no
-        sync between shards, so that distinct cards overlap; then gathered in
-        order on the first device."""
-        outs = []
+        """The forward over a uint8 array or tensor on the replicas: the
+        probabilities, and with ``thresholds`` both categories' MCut
+        thresholds, gathered in order on the first device."""
+        floor = self.config.character_thresh_floor
+
+        def step(model, general, character, mean, std, x) -> tuple:
+            probs = _predict_probs(model, x, mean, std)
+            if not thresholds:
+                return (probs,)
+            return (probs, *_category_thresholds(probs, general, character, floor))
+
         with torch.inference_mode():
-            with span("step.h2d"):
-                blocks = shard_rows(self.mesh, images_u8, self._stager)
-            with span("step.launch"):
-                for dev, x in zip(self.mesh.devices, blocks):
-                    model, general, character, mean, std = self._replicas[dev]
-                    with device_scope(dev):
-                        probs = _predict_probs(model, x, mean, std)
-                        outs.append((probs, *_category_thresholds(
-                            probs, general, character, self.config.character_thresh_floor))
-                            if thresholds else (probs,))
-                return tuple(gather_rows([o[i] for o in outs], self.device)
-                             for i in range(len(outs[0])))
+            return self.replicated(images_u8, step)
 
     def predict_device(self, images_u8: np.ndarray):
         """Queue the device part (forward + thresholds) WITHOUT a sync — lets the

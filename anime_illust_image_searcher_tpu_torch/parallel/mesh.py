@@ -4,8 +4,10 @@ Port of the JAX package's parallel/mesh.py. JAX lays a batch over a
 ``(data, model)`` mesh with a ``NamedSharding`` and lets XLA place it; here the
 mesh is the list of its data shards' devices and placement is a plain
 function: ``shard_rows`` cuts the leading axis into one in-order block per data
-shard and puts each block on its device. The port has no model axis
-(tensor-parallel layouts are not ported): ``shape[MODEL_AXIS]`` is always 1.
+shard and puts each block on its device, and a predictor's
+``ReplicatedForward`` runs each block on its device's replica of the model.
+The port has no model axis (tensor-parallel layouts are not ported):
+``shape[MODEL_AXIS]`` is always 1.
 
 A mesh is local to its process. When a ``torch.distributed`` group is up, the
 mesh also carries this process's rank and the world size, and callers that
@@ -30,6 +32,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..device import DeviceLike, resolve_device, to_device
+from ..utils.profiling import span
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -165,21 +168,6 @@ def predictor_mesh(mesh: Optional[Mesh], device: DeviceLike, multi_host: str) ->
     return run_mesh(mesh, device)
 
 
-def replicate(model: nn.Module, mesh: Mesh,
-              make: Callable[[torch.device], nn.Module]) -> Dict[torch.device, nn.Module]:
-    """One replica of ``model`` (which lives on the mesh's first device) a
-    distinct device of the mesh: ``model`` itself, then ``make(device)``
-    loaded with ``model``'s state dict (int8 layers load their quantized
-    buffers as they are), in eval mode without grads. Shards on one device
-    share its replica."""
-    out = {mesh.devices[0]: model}
-    for dev in mesh.distinct_devices[1:]:
-        replica = make(dev)
-        replica.load_state_dict(model.state_dict())
-        out[dev] = replica.eval().requires_grad_(False)
-    return out
-
-
 def gather_rows(parts: Sequence[torch.Tensor], dev: torch.device) -> torch.Tensor:
     """Row blocks concatenated in order on ``dev``; a single block is
     returned as it is, with no copy."""
@@ -194,7 +182,7 @@ def device_scope(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-# shard_rows' row blocks by route: through a PinnedStager, or any other way
+# shard_rows' row blocks by route: through a PinnedStager, or as _put places them
 uploads = {"pinned": 0, "pageable": 0}
 
 
@@ -216,7 +204,8 @@ class PinnedStager:
 
     A card's ring is allocated whole at its first block (a predictor's
     warm-up batch) and again only for a larger block: a smaller one uses the
-    front of each slot. Each predictor owns one stager."""
+    front of each slot. Each predictor's ``ReplicatedForward`` owns one
+    stager."""
 
     SLOTS = 2
 
@@ -228,6 +217,10 @@ class PinnedStager:
 
     def upload(self, block: np.ndarray, dev: torch.device) -> torch.Tensor:
         """``block`` on the card ``dev``, queued on its current stream."""
+        if any(st < 0 for st in block.strides):
+            # torch.from_numpy refuses a negative stride (an ``x[..., ::-1]``
+            # flip): such a block is made contiguous first
+            block = np.ascontiguousarray(block)
         with warnings.catch_warnings():
             # torch warns that it cannot keep a read-only array (a memory
             # map) read-only; the copy below only reads it
@@ -276,33 +269,80 @@ def _put(block, dev: torch.device) -> torch.Tensor:
     return to_device(block, dev)
 
 
-def shard_rows(mesh: Mesh, arr, stager: Optional[PinnedStager] = None) -> List[torch.Tensor]:
+def shard_rows(mesh: Mesh, arr, stager: PinnedStager) -> List[torch.Tensor]:
     """The in-order row blocks of ``arr`` (a numpy array or a tensor), one per
     data shard, each on its shard's device. The leading axis must divide by
     ``n_data``; otherwise this raises.
 
-    A numpy block bound for a card, with a ``stager``, goes up through the
-    stager's page-locked ring as one asynchronous DMA: its copy into the ring
-    is the copy of its own that ``to_device`` would make, so a read-only
-    memory map stays safe, and it replaces ``to_device``'s two (a host copy,
-    then a pageable copy that CUDA stages piece by piece while the host
-    waits). Every other block (a CPU device, a tensor, no stager) is placed
-    as ``_put`` places it. ``uploads`` counts each block by its route."""
+    A numpy block bound for a card goes up through the stager's page-locked
+    ring as one asynchronous DMA: its copy into the ring is the copy of its
+    own that ``to_device`` would make, so a read-only memory map stays safe,
+    and it replaces ``to_device``'s two (a host copy, then a pageable copy
+    that CUDA stages piece by piece while the host waits). A block on a CPU
+    device, or a tensor block, is placed as ``_put`` places it. ``uploads``
+    counts each block by its route."""
     out = []
     for block, dev in zip(_row_cut(arr, mesh.shape[DATA_AXIS], 0, len(mesh.devices)),
                           mesh.devices):
-        pinned = stager is not None and dev.type == "cuda" and isinstance(block, np.ndarray)
+        pinned = dev.type == "cuda" and isinstance(block, np.ndarray)
         uploads["pinned" if pinned else "pageable"] += 1
         out.append(stager.upload(block, dev) if pinned else _put(block, dev))
     return out
+
+
+class ReplicatedForward:
+    """A predictor's batch step over its mesh: the one place that decides how
+    a batch reaches the devices and runs there. ``replicas`` maps each
+    distinct device of the mesh to (replica, *consts(device)): ``model``
+    itself on the first device, elsewhere ``make(device)`` loaded with its
+    state dict (int8 buffers as they are), in eval mode without grads. Its
+    ``PinnedStager`` takes every numpy batch up to a card."""
+
+    def __init__(self, mesh: Mesh, model: nn.Module,
+                 make: Callable[[torch.device], nn.Module],
+                 consts: Callable[[torch.device], tuple]) -> None:
+        self.mesh = mesh
+        self.device = mesh.devices[0]
+        self._stager = PinnedStager()
+        self.replicas: Dict[torch.device, tuple] = {self.device: (model, *consts(self.device))}
+        for dev in mesh.distinct_devices[1:]:
+            replica = make(dev)
+            replica.load_state_dict(model.state_dict())
+            self.replicas[dev] = (replica.eval().requires_grad_(False), *consts(dev))
+
+    @property
+    def consts(self) -> tuple:
+        """The first device's constants, for paths that run ``model`` there."""
+        return self.replicas[self.device][1:]
+
+    def upload(self, images) -> torch.Tensor:
+        """``images`` whole on the first device, by ``shard_rows``' route."""
+        return shard_rows(device_mesh(self.device), images, self._stager)[0]
+
+    def __call__(self, images, fn: Callable[..., tuple]) -> tuple:
+        """``fn(replica, *constants, block)``, a tuple of tensors, on each row
+        block of ``images``, queued with no sync between shards so that
+        distinct cards overlap; each output gathered in order on the first
+        device. One ``step.h2d`` span (the blocks' placement) and one
+        ``step.launch`` span (the forwards and the gather) a batch."""
+        with span("step.h2d"):
+            blocks = shard_rows(self.mesh, images, self._stager)
+        with span("step.launch"):
+            outs = []
+            for dev, x in zip(self.mesh.devices, blocks):
+                replica, *consts = self.replicas[dev]
+                with device_scope(dev):
+                    outs.append(fn(replica, *consts, x))
+            return tuple(gather_rows([o[i] for o in outs], self.device)
+                         for i in range(len(outs[0])))
 
 
 def put_global(arr, mesh: Mesh) -> List[torch.Tensor]:
     """This process's shards of a host array that every process holds whole
     (artifacts load from shared storage): of ``world_size x n_data`` in-order
     row blocks, blocks ``rank x n_data`` .. ``rank x n_data + n_data - 1``,
-    each on its device. One process gets what ``shard_rows`` gives without a
-    stager."""
+    each on its device, placed as ``_put`` places them (artifacts are
+    uploaded once)."""
     n = mesh.shape[DATA_AXIS]
     return [_put(block, dev) for block, dev in
             zip(_row_cut(arr, mesh.world_size * n, mesh.rank * n, n), mesh.devices)]

@@ -823,7 +823,7 @@ def phase_main(torch, tagger_mod, config_mod, eva02, fa, compute_dtype="bfloat16
     x = torch.from_numpy(batches[1]).to("cuda")
 
     def forward():
-        pred._forward(x, thresholds=False)
+        pred.predict_device(x)
 
     fwd_ms = cuda_ms(forward, iters=2, warmup=0)
     prof = profile_groups(torch, forward, _kernel_group) if profile else None
@@ -1340,7 +1340,7 @@ def phase_tagging_e2e(torch, tagging, tagger_mod, config_mod, eva02, quant, inge
 
     def forward(p):
         def run():
-            p._forward(x, thresholds=False)
+            p.predict_device(x)
         return run
 
     turns = [cuda_ms(forward(pred), iters=1, warmup=0), cuda_ms(forward(pred8), iters=1, warmup=0),
@@ -1638,10 +1638,10 @@ def phase_ccip_main(torch, ccip_mod, config_mod, caformer, fa) -> tuple:
     rerun = float(np.abs(outs[0] - warm).max())
     check(rerun <= 1e-6, f"the same batch gave features {rerun} apart")
     x = torch.from_numpy(batches[1]).to("cuda")
-    fwd_ms = cuda_ms(lambda: caformer.extract_features(pred.model, x, pred._mean, pred._std),
+    fwd_ms = cuda_ms(lambda: caformer.extract_features(pred.model, x, *pred.replicated.consts),
                      iters=3, warmup=1)
     prof = profile_groups(torch, lambda: caformer.extract_features(
-        pred.model, x, pred._mean, pred._std), _ccip_group)
+        pred.model, x, *pred.replicated.consts), _ccip_group)
     gflop = caformer_gflop(pred.model_cfg)
     img_s = 3 * b / wall
     res = dict(batch=b, batches_timed=3, seconds=wall, img_s=img_s, gflop_per_image=gflop,
@@ -1691,10 +1691,10 @@ def phase_ccip_f32(torch, ccip_mod, config_mod, caformer, fa) -> tuple:
     rerun = float(np.abs(outs[0] - warm).max())
     check(rerun <= 1e-6, f"the same batch gave f32 features {rerun} apart")
     x = torch.from_numpy(batches[1]).to("cuda")
-    fwd_ms = cuda_ms(lambda: caformer.extract_features(pred.model, x, pred._mean, pred._std),
+    fwd_ms = cuda_ms(lambda: caformer.extract_features(pred.model, x, *pred.replicated.consts),
                      iters=3, warmup=1)
     prof = profile_groups(torch, lambda: caformer.extract_features(
-        pred.model, x, pred._mean, pred._std), _ccip_group)
+        pred.model, x, *pred.replicated.consts), _ccip_group)
     gflop = caformer_gflop(pred.model_cfg)
     img_s = 3 * b / wall
     res = dict(compute_dtype="float32", batch=b, batches_timed=3, seconds=wall, img_s=img_s,
@@ -4042,7 +4042,7 @@ def phase_dp_tagging(torch, tagger_mod, config_mod, mesh_mod, fa) -> tuple:
         shards = pred.mesh.shape["data"]
 
         def forward(x, pred=pred):
-            return pred._forward(x, thresholds=False)[0]
+            return pred.predict_device(x)[0]
 
         def pipeline(batches, pred=pred):
             outs, pending, first = [], None, None
@@ -4155,7 +4155,7 @@ def phase_dp_ccip(torch, ccip_mod, config_mod, mesh_mod, caformer, gen_cfeatures
             return outs[0]
 
         def forward(x, pred=pred):
-            return pred._forward(x)
+            return pred.ccip_extract_device(x)
 
         got[name], res[name] = dp_way(torch, forward, pipeline, batches,
                                       fa.mha_attention.launches, 32, 18, shards)

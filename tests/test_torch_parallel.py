@@ -109,9 +109,9 @@ def test_dp_tagger_matches_single_device(tagger_ckpt):
     np.testing.assert_allclose(probs, jprobs, rtol=0, atol=1e-5)
     for i in range(8):
         np.testing.assert_array_equal(probs[i:i + 1], single.predict_probs(imgs[i:i + 1]))
-    assert dp.device == CPU and list(dp._replicas) == [CPU]
+    assert dp.device == CPU and list(dp.replicated.replicas) == [CPU]
     # without a mesh the predictor's mesh is its device alone
-    assert single.mesh.devices == [CPU] and list(single._replicas) == [CPU]
+    assert single.mesh.devices == [CPU] and list(single.replicated.replicas) == [CPU]
 
 
 @pytest.mark.parametrize("quant", ["none", "int8"])
@@ -125,7 +125,7 @@ def test_dp_tagger_replicas_on_distinct_devices(tagger_ckpt, quant):
     dp = TaggerPredictor(cfg, model_dir=tagger_ckpt, model_cfg=TINY, device="cpu",
                          mesh=make_mesh(devices=["cpu", "cpu:0"]))
     assert dp.predict(imgs, *ARGS) == single.predict(imgs, *ARGS)
-    replicas = [r[0] for r in dp._replicas.values()]
+    replicas = [r[0] for r in dp.replicated.replicas.values()]
     assert len(replicas) == 2 and replicas[0] is dp.model and replicas[1] is not dp.model
     for a, b in zip(replicas[0].state_dict().values(), replicas[1].state_dict().values()):
         assert torch.equal(a, b)
@@ -164,7 +164,7 @@ def test_dp_ccip_features_match_single_device(ccip_dir):
         for s in range(0, 8, m):
             np.testing.assert_array_equal(
                 b[s:s + m], single.ccip_batch_extract_features(imgs[s:s + m]))
-    assert len(dp._replicas) == 2
+    assert len(dp.replicated.replicas) == 2
     jpred = jccip.CCIPPredictor(
         config=JCCIPConfig(image_size=64, feature_dim=32, batch_size=8),
         model_cfg=jc.tiny_test_config(), use_pallas=False, model_dir=ccip_dir)
@@ -352,14 +352,14 @@ def test_put_global_and_shard_rows_single_process():
     devices; the leading axis must divide by the shard count."""
     mesh = cpu_mesh(8)
     arr = np.arange(64, dtype=np.float32).reshape(16, 4)
-    a, b = put_global(arr, mesh), shard_rows(mesh, torch.from_numpy(arr))
+    a, b = put_global(arr, mesh), shard_rows(mesh, torch.from_numpy(arr), PinnedStager())
     assert len(a) == len(b) == 8
     for i, (x, y) in enumerate(zip(a, b)):
         assert x.device == y.device == CPU
         np.testing.assert_array_equal(x.numpy(), arr[2 * i:2 * i + 2])
         assert torch.equal(x, y)
     with pytest.raises(ValueError, match="do not split"):
-        shard_rows(mesh, arr[:15])
+        shard_rows(mesh, arr[:15], PinnedStager())
     # one block comes back as it is; more are concatenated in order
     assert gather_rows(b[:1], CPU) is b[0]
     assert torch.equal(gather_rows(b, CPU), torch.from_numpy(arr))
@@ -372,13 +372,17 @@ def test_put_global_and_shard_rows_single_process():
 
 
 @pytest.mark.parametrize("n_data", [1, 2, 8])
-@pytest.mark.parametrize("stager", [None, PinnedStager()])
-def test_shard_rows_of_a_numpy_batch_on_the_cpu(n_data, stager):
-    """On a CPU mesh a numpy batch takes the pageable route, stager or not:
+@pytest.mark.parametrize("flip", [False, True], ids=["contiguous", "flipped"])
+def test_shard_rows_of_a_numpy_batch_on_the_cpu(n_data, flip):
+    """On a CPU mesh a numpy batch takes the pageable route, with its stager
+    unused, a batch with a negative stride (an ``x[..., ::-1]`` flip) too:
     each block is the batch's rows in a copy of its own, and each block
     counts once as pageable; the stager holds nothing."""
     mesh = cpu_mesh(n_data)
+    stager = PinnedStager()
     arr = np.arange(16 * 3 * 2, dtype=np.uint8).reshape(16, 3, 2)
+    if flip:
+        arr = arr[..., ::-1]
     mesh_lib.reset_uploads()
     blocks = shard_rows(mesh, arr, stager)
     assert mesh_lib.uploads == {"pinned": 0, "pageable": n_data}
@@ -387,33 +391,53 @@ def test_shard_rows_of_a_numpy_batch_on_the_cpu(n_data, stager):
         assert b.device == CPU and b.dtype == torch.uint8
         np.testing.assert_array_equal(b.numpy(), arr[i * m:(i + 1) * m])
         assert not np.shares_memory(b.numpy(), arr)
-    assert stager is None or stager._slots == {}
+    assert stager._slots == {}
     shard_rows(mesh, arr, stager)
     assert mesh_lib.uploads == {"pinned": 0, "pageable": 2 * n_data}
     mesh_lib.reset_uploads()
     assert mesh_lib.uploads == {"pinned": 0, "pageable": 0}
 
 
-@pytest.mark.parametrize("stager", [None, PinnedStager()])
-def test_shard_rows_of_a_read_only_memory_map(tmp_path, stager):
-    """A read-only memory map gives writable tensors that share no memory
-    with it; writing them leaves the file as it was."""
+@pytest.mark.parametrize("flip", [False, True], ids=["contiguous", "flipped"])
+def test_shard_rows_of_a_read_only_memory_map(tmp_path, flip):
+    """A read-only memory map, or a negative-stride view of one, gives
+    writable tensors that share no memory with it; writing them leaves the
+    file as it was."""
     want = np.random.default_rng(4).integers(0, 256, (8, 5), dtype=np.uint8)
     want.tofile(tmp_path / "rows.u8")
     mm = np.memmap(tmp_path / "rows.u8", dtype=np.uint8, mode="r", shape=(8, 5))
     assert not mm.flags.writeable
-    blocks = shard_rows(cpu_mesh(2), mm, stager)
+    rows = mm[:, ::-1] if flip else mm
+    blocks = shard_rows(cpu_mesh(2), rows, PinnedStager())
     for i, b in enumerate(blocks):
         assert not np.shares_memory(b.numpy(), mm)
-        np.testing.assert_array_equal(b.numpy(), want[4 * i:4 * i + 4])
+        np.testing.assert_array_equal(b.numpy(), np.asarray(rows[4 * i:4 * i + 4]))
         b.fill_(0)
     np.testing.assert_array_equal(np.fromfile(tmp_path / "rows.u8", np.uint8).reshape(8, 5), want)
 
 
+@pytest.mark.parametrize("make", [
+    lambda: TaggerPredictor(CFG, model_cfg=TINY, device="cpu"),
+    lambda: CCIPPredictor(CCIPConfig(image_size=64, feature_dim=32),
+                          model_cfg=tc.tiny_test_config(), device="cpu"),
+], ids=["tagger", "ccip"])
+def test_a_flipped_batch_gives_the_outputs_of_its_contiguous_copy(make):
+    """A uint8 batch with a negative stride (``x[..., ::-1]``, a BGR<->RGB
+    flip) gives bit for bit the outputs of its ``np.ascontiguousarray``
+    copy: the tagger's probabilities, CCIP's features."""
+    pred = make()
+    s = pred.config.image_size
+    x = np.random.default_rng(8).integers(0, 256, (2, s, s, 3), dtype=np.uint8)[..., ::-1]
+    assert x.strides[-1] < 0
+    run = (pred.predict_probs if isinstance(pred, TaggerPredictor)
+           else pred.ccip_batch_extract_features)
+    np.testing.assert_array_equal(run(x), run(np.ascontiguousarray(x)))
+
+
 @pytest.mark.parametrize("n_data", [1, 2])
 def test_shard_rows_of_a_tensor_takes_no_staging(n_data):
-    """A tensor batch is cut into views of its own rows on their device,
-    stager or not: nothing is staged, and each block counts as pageable."""
+    """A tensor batch is cut into views of its own rows on their device:
+    nothing is staged, and each block counts as pageable."""
     stager = PinnedStager()
     x = torch.arange(24, dtype=torch.float32).reshape(8, 3)
     mesh_lib.reset_uploads()

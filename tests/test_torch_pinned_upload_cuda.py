@@ -1,7 +1,9 @@
 """The predictors' upload of a numpy batch to the card: through the
-predictor's page-locked staging ring (``parallel/mesh.PinnedStager``) as one
-asynchronous DMA, bit-equal to the pageable route, safe when batches are
-queued faster than the card takes them, and counted in ``mesh.uploads``.
+page-locked staging ring (``parallel/mesh.PinnedStager``) of the predictor's
+``ReplicatedForward`` as one asynchronous DMA, bit-equal to the forward of
+the batch placed by ``device.to_device``, a negative-stride batch too, safe
+when batches are queued faster than the card takes them, and counted in
+``mesh.uploads``.
 
 Marked ``cuda``: they skip without an NVIDIA card (page-locked memory and
 the card's copies). This file imports neither JAX nor the JAX package:
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from anime_illust_image_searcher_tpu_torch.config import CCIPConfig, TaggerConfig
+from anime_illust_image_searcher_tpu_torch.device import to_device
 from anime_illust_image_searcher_tpu_torch.models import eva02, swinv2
 from anime_illust_image_searcher_tpu_torch.models.caformer import CAFormerConfig
 from anime_illust_image_searcher_tpu_torch.models.ccip import CCIPPredictor
@@ -76,12 +79,9 @@ def outputs(pred, x) -> tuple:
 
 
 def pageable(pred, x) -> tuple:
-    """The same outputs through ``to_device``'s route: no stager."""
-    stager, pred._stager = pred._stager, None
-    try:
-        return outputs(pred, x)
-    finally:
-        pred._stager = stager
+    """The same forward on ``x`` placed on the card by ``to_device``'s
+    pageable route."""
+    return outputs(pred, to_device(x, pred.device))
 
 
 @pytest.mark.cuda
@@ -91,7 +91,7 @@ def test_staged_upload_equals_pageable_and_is_counted(cuda, name, twice):
     """The staged route's outputs are torch.equal to the pageable route's
     (the tagger's probabilities and thresholds, CCIP's features), and
     ``uploads`` counts one pinned block a forward and a shard, no pageable
-    one; the route without a stager counts pageable blocks."""
+    one; a batch already on the card counts as pageable blocks."""
     pred = predictor(name, twice)
     blocks = 2 if twice else 1
     xs = [batch(pred, seed) for seed in (1, 2, 3)]
@@ -105,6 +105,25 @@ def test_staged_upload_equals_pageable_and_is_counted(cuda, name, twice):
         for a, b in zip(got, want):
             assert a.device.type == "cuda" and torch.equal(a, b)
     assert mesh_lib.uploads == {"pinned": 3 * blocks, "pageable": 3 * blocks}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("twice", [False, True])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_flipped_batch_equals_its_contiguous_copy(cuda, name, twice):
+    """A batch with a negative stride (``x[..., ::-1]``, an RGB<->BGR flip)
+    goes up through the ring and gives outputs torch.equal to those of its
+    ``np.ascontiguousarray`` copy, on one card and on a mesh that names it
+    twice."""
+    pred = predictor(name, twice)
+    x = batch(pred, 4)[..., ::-1]
+    assert x.strides[-1] < 0
+    mesh_lib.reset_uploads()
+    got = outputs(pred, x)
+    assert mesh_lib.uploads == {"pinned": 2 if twice else 1, "pageable": 0}
+    want = outputs(pred, np.ascontiguousarray(x))
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -11,8 +11,9 @@ error against f64 at most twice the plain version's plus 1e-6) at Dh=64
 S = 1, 65, 129, 1025 and on the CAFormer's qkv views at S = 144 and 576;
 times both in turns (other, this, this, other) at phase 2c's three shapes
 beside both bounds (3 TF32 passes on the tensor cores, FFMA); then, with each
-kernel (other, this), times one full-width f32 tagger forward and one f32
-CAFormer-24 forward at B=64 on CUDA events and profiles one of each under
+kernel (other, this), times one full-width f32 tagger forward (through
+``predict_device``, with MCut's thresholds) and one f32 CAFormer-24 forward
+at B=64 on CUDA events and profiles one of each under
 torch.profiler: device ms by chip_smoke.py's kernel groups and the attention
 kernel's share. Prints the card's name and power limit, both builds' ptxas
 register and spill lines, ``ab {json}`` lines and an ``ab summary {json}``
@@ -137,11 +138,7 @@ def main() -> None:
     x = torch.randint(0, 256, (64, 448, 448, 3), dtype=torch.uint8, generator=gen.manual_seed(2),
                       device="cuda")
 
-    def tagger_forward():
-        with torch.inference_mode():
-            tagger_mod._predict_probs(pred.model, x, pred._mean, pred._std)
-
-    forwards("tagger f32 B=64 forward", tagger_forward, cs._kernel_group)
+    forwards("tagger f32 B=64 forward", lambda: pred.predict_device(x), cs._kernel_group)
     del pred, x
     torch.cuda.empty_cache()
 
@@ -152,7 +149,7 @@ def main() -> None:
     x = torch.randint(0, 256, (64, 384, 384, 3), dtype=torch.uint8, generator=gen.manual_seed(6),
                       device="cuda")
     forwards("caformer-24 f32 B=64 forward",
-             lambda: caformer.extract_features(pred.model, x, pred._mean, pred._std),
+             lambda: caformer.extract_features(pred.model, x, *pred.replicated.consts),
              cs._ccip_group)
     del pred, x
     torch.cuda.empty_cache()
